@@ -1,0 +1,33 @@
+"""Carrying state across from the reference package.
+
+A compressor has no weights: the state worth carrying is the decision and
+the contract. These helpers take plain values (never `repro` objects, so
+this package stays free of JAX) and return the port's types:
+
+* `selection_from_reference(d)` — ``dataclasses.asdict`` of a reference
+  `Selection` (or any mapping with its fields) -> the port's `Selection`,
+  so a reference decision can drive the port's encoders and the streams
+  can be compared byte for byte;
+* `policy_from_spec(spec)` — a reference `Policy.spec()` dict -> the
+  port's `Policy`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Mapping
+
+from .policy import Policy
+from .selector import Selection
+
+_FLOAT_FIELDS = tuple(f.name for f in fields(Selection) if f.name != "codec")
+
+
+def selection_from_reference(d: Mapping) -> Selection:
+    """The port's `Selection` for a reference decision given as plain values."""
+    return Selection(str(d["codec"]), *(float(d[k]) for k in _FLOAT_FIELDS))
+
+
+def policy_from_spec(spec: Mapping) -> Policy:
+    """The port's `Policy` for a reference `Policy.spec()` dict."""
+    return Policy.from_spec(dict(spec))

@@ -1,0 +1,226 @@
+"""ZFP-style transform-based error-bounded lossy compressor (paper §2, §5.2):
+the host byte codec.
+
+Port of the byte-codec half of `repro.core.zfp`. Pipeline: 4^n blocking ->
+exponent alignment -> block orthogonal transform T(t) -> truncation at a
+conservative power-of-two plane step -> the plane-sectioned, degree-ordered
+k-prefix embedded coder, laid out plane-major across all blocks so encode
+and decode vectorize over blocks. Quantization runs in float64; streams
+(``ZFJX``) are byte-identical to the reference's.
+
+Pointwise guarantee |x - x~| <= eb via the conservative plane cutoff.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+from ..device import as_f32
+from .embedded import degree_order, k_width
+from .transforms import blockize, bot_linf_gain, bot_matrix, unblockize
+
+_MAGIC = b"ZFJX"
+
+
+def _prepare_blocks(x: np.ndarray, eb: float, transform: str):
+    n = x.ndim
+    T = bot_matrix(transform)  # float64
+    gain_n = bot_linf_gain(transform) ** n
+    blocks, padded = blockize(as_f32(x, torch.device("cpu")))
+    blocks = blocks.numpy().astype(np.float64)
+    mx = np.maximum(np.abs(blocks).reshape(blocks.shape[0], -1).max(axis=1), 1e-30)
+    e = np.ceil(np.log2(mx)).astype(np.int16)
+    norm = blocks * np.exp2(-e.astype(np.float64)).reshape((-1,) + (1,) * n)
+    coeffs = norm
+    for axis in range(1, n + 1):
+        coeffs = np.moveaxis(np.tensordot(coeffs, T, axes=[[axis], [1]]), -1, axis)
+    raw = eb / (np.exp2(e.astype(np.float64)) * gain_n)
+    pexp = np.floor(np.log2(np.maximum(raw, 2.0**-60)))
+    step = np.exp2(pexp)
+    q = np.trunc(coeffs.reshape(coeffs.shape[0], -1) / step[:, None]).astype(np.int64)
+    return q, e, step, padded, gain_n, T
+
+
+def _emit_planes(m: np.ndarray, neg: np.ndarray, nsb: np.ndarray) -> list[np.ndarray]:
+    """Plane-major, degree-ordered k-prefix significance coding.
+
+    Per plane & block: refinement bits of significant coeffs; a fixed-width
+    k = 1 + rank of the last newly-significant remaining coefficient (0 if
+    none); significance bits of the first k remaining coefficients only;
+    signs of the newly significant. `m` must already be in degree order.
+    """
+    parts: list[np.ndarray] = []
+    nblk, bsz = m.shape
+    w = k_width(bsz)
+    kshift = np.arange(w - 1, -1, -1, dtype=np.int64)
+    maxp = int(nsb.max()) if nsb.size else 0
+    for p in range(maxp - 1, -1, -1):
+        active = nsb > p
+        if not active.any():
+            continue
+        act = active[:, None]
+        sig_prev = (m >> (p + 1)) > 0
+        bit_p = ((m >> p) & 1).astype(np.uint8)
+        # 1) refinement bits of already-significant coefficients
+        parts.append(bit_p[act & sig_prev])
+        # 2) k per active block with remaining coeffs (fixed width w)
+        rem = act & ~sig_prev
+        has_rem = rem.any(axis=1) & active
+        rank = np.cumsum(rem, axis=1) - 1
+        newly = rem & (bit_p == 1)
+        k = np.max(np.where(newly, rank + 1, 0), axis=1)
+        kb = ((k[has_rem, None] >> kshift[None, :]) & 1).astype(np.uint8)
+        parts.append(kb.reshape(-1))
+        # 3) significance bits of the first k remaining coefficients
+        test = rem & (rank < k[:, None])
+        parts.append(bit_p[test])
+        # 4) signs of newly-significant coefficients
+        parts.append(neg[newly].astype(np.uint8))
+    return parts
+
+
+def _read_planes(bits: np.ndarray, pos: int, nblk: int, bsz: int, nsb: np.ndarray):
+    m = np.zeros((nblk, bsz), dtype=np.int64)
+    neg = np.zeros((nblk, bsz), dtype=bool)
+    w = k_width(bsz)
+    kweights = (1 << np.arange(w - 1, -1, -1)).astype(np.int64)
+    maxp = int(nsb.max()) if nsb.size else 0
+    for p in range(maxp - 1, -1, -1):
+        active = nsb > p
+        if not active.any():
+            continue
+        act = active[:, None]
+        sig_prev = m > 0  # m currently holds bits above plane p
+        m[active] <<= 1
+        # 1) refinement
+        ref_mask = act & sig_prev
+        nref = int(ref_mask.sum())
+        if nref:
+            m[ref_mask] |= bits[pos : pos + nref]
+        pos += nref
+        # 2) k values
+        rem = act & ~sig_prev
+        has_rem = rem.any(axis=1) & active
+        ngrp = int(has_rem.sum())
+        k = np.zeros(nblk, dtype=np.int64)
+        if ngrp:
+            kb = bits[pos : pos + ngrp * w].reshape(ngrp, w)
+            k[has_rem] = kb @ kweights
+        pos += ngrp * w
+        # 3) significance bits of the first k remaining coefficients
+        rank = np.cumsum(rem, axis=1) - 1
+        test = rem & (rank < k[:, None])
+        nbm = int(test.sum())
+        newly = np.zeros_like(rem)
+        if nbm:
+            bmb = bits[pos : pos + nbm]
+            m[test] |= bmb
+            newly[test] = bmb.astype(bool)
+        pos += nbm
+        # 4) signs
+        nnew = int(newly.sum())
+        if nnew:
+            neg[newly] = bits[pos : pos + nnew].astype(bool)
+        pos += nnew
+    return m, neg, pos
+
+
+def zfp_container(
+    shape: tuple[int, ...],
+    padded: tuple[int, ...],
+    eb: float,
+    transform: str,
+    e: np.ndarray,
+    nsb: np.ndarray,
+    nbits: int,
+    payload: bytes,
+) -> bytes:
+    """Assemble the ZFJX container around an already-packed plane payload
+    (shared by the host and the device Stage III)."""
+    n = len(shape)
+    hdr = struct.pack("<4sBdQ", _MAGIC, n, float(eb), len(e)) + struct.pack(
+        f"<{n}q{n}q", *shape, *padded
+    )
+    return b"".join(
+        [
+            hdr,
+            transform.encode().ljust(16, b"\0"),
+            np.asarray(e, np.int16).tobytes(),
+            np.asarray(nsb, np.uint8).tobytes(),
+            struct.pack("<Q", int(nbits)),
+            payload,
+        ]
+    )
+
+
+def zfp_encode_quantized(
+    q: np.ndarray,
+    e: np.ndarray,
+    shape: tuple[int, ...],
+    padded: tuple[int, ...],
+    eb: float,
+    transform: str = "zfp",
+) -> bytes:
+    """Stage III on precomputed quantized block coefficients `q`
+    ((nblk, 4^n), raw pre-degree-order layout) and exponents `e`."""
+    n = len(shape)
+    q = np.asarray(q, dtype=np.int64).reshape(len(e), 4**n)
+    q = q[:, degree_order(n)]
+    m = np.abs(q)
+    neg = q < 0
+    mx = m.max(axis=1) if m.size else np.zeros(0, dtype=np.int64)
+    nsb = np.zeros(len(m), dtype=np.uint8)
+    nz = mx > 0
+    nsb[nz] = np.floor(np.log2(mx[nz])).astype(np.uint8) + 1
+    parts = _emit_planes(m, neg, nsb)
+    allbits = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+    payload = np.packbits(allbits).tobytes()
+    return zfp_container(
+        shape, padded, eb, transform, e, nsb, int(allbits.size), payload
+    )
+
+
+def zfp_compress(x: np.ndarray, eb: float, transform: str = "zfp") -> bytes:
+    x = np.asarray(x, dtype=np.float32)
+    q, e, _, padded, _, _ = _prepare_blocks(x, eb, transform)
+    return zfp_encode_quantized(q, e, x.shape, padded, eb, transform)
+
+
+def zfp_decompress(buf: bytes) -> np.ndarray:
+    off = 0
+    magic, n, eb, nblk = struct.unpack_from("<4sBdQ", buf, off)
+    if magic != _MAGIC:
+        raise ValueError(f"not a ZFJX stream (magic {magic!r})")
+    off += struct.calcsize("<4sBdQ")
+    dims = struct.unpack_from(f"<{n}q{n}q", buf, off)
+    off += 16 * n
+    shape, padded = tuple(dims[:n]), tuple(dims[n:])
+    transform = buf[off : off + 16].rstrip(b"\0").decode()
+    off += 16
+    e = np.frombuffer(buf[off : off + 2 * nblk], dtype=np.int16)
+    off += 2 * nblk
+    nsb = np.frombuffer(buf[off : off + nblk], dtype=np.uint8)
+    off += nblk
+    (nbits,) = struct.unpack_from("<Q", buf, off)
+    off += 8
+    bits = np.unpackbits(np.frombuffer(buf[off:], dtype=np.uint8))[:nbits].astype(np.int64)
+    bsz = 4**n
+    m, neg, _ = _read_planes(bits, 0, nblk, bsz, nsb.astype(np.int64))
+    inv = np.argsort(degree_order(n))  # undo the degree-ordered layout
+    m = m[:, inv]
+    neg = neg[:, inv]
+    gain_n = bot_linf_gain(transform) ** n
+    raw = eb / (np.exp2(e.astype(np.float64)) * gain_n)
+    step = np.exp2(np.floor(np.log2(np.maximum(raw, 2.0**-60))))
+    mag = np.where(m > 0, (m.astype(np.float64) + 0.5) * step[:, None], 0.0)
+    coeffs = np.where(neg, -mag, mag).reshape((nblk,) + (4,) * n)
+    T = bot_matrix(transform)
+    rec = coeffs
+    for axis in range(1, n + 1):
+        rec = np.moveaxis(np.tensordot(rec, T.T, axes=[[axis], [1]]), -1, axis)
+    rec = rec * np.exp2(e.astype(np.float64)).reshape((-1,) + (1,) * n)
+    out = unblockize(torch.from_numpy(rec.astype(np.float32)), padded, shape)
+    return out.numpy().copy()

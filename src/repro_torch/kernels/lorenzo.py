@@ -1,0 +1,74 @@
+"""Fused prequantize + 2-D/3-D integer-Lorenzo encode: CUDA kernels for
+Hopper and their wrappers (K1 and K2 of the port).
+
+The kernels (``csrc/lorenzo.cu``) replace the Pallas TPU kernels
+`repro.kernels.lorenzo.lorenzo2d_encode` and `lorenzo3d_encode`: one pass
+over device memory computing ``round(x / 2eb)`` and the n-D Lorenzo
+difference of the integer codes, exact in int32.
+
+Each wrapper takes a contiguous float32 tensor of its rank. A CUDA tensor
+launches the kernel on the current stream, or raises; a CPU tensor — the
+caller asked for the CPU — runs the plain torch version in `ref.py`.
+`LAUNCHES` counts kernel launches per kernel, so a run can show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import lorenzo_encode_ref
+
+#: kernel launches per kernel since the last reset (CPU calls do not count)
+LAUNCHES = {"lorenzo2d_encode": 0, "lorenzo3d_encode": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(x: torch.Tensor, ndim: int, name: str) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(x).__name__}")
+    if x.ndim != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-D tensor, got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _launch(name: str, x: torch.Tensor, eb: float) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if x.numel() == 0:
+        return out
+    fn = getattr(_build.load(), name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), out.data_ptr(), *x.shape, ctypes.c_float(eb), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def lorenzo2d_encode(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """K1: fused quantize + 2-D Lorenzo, f32 (m, n) -> int32 (m, n)."""
+    _check(x, 2, "lorenzo2d_encode")
+    if x.device.type == "cpu":
+        return lorenzo_encode_ref(x, eb)
+    return _launch("lorenzo2d_encode", x, float(eb))
+
+
+def lorenzo3d_encode(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """K2: fused quantize + 3-D Lorenzo, f32 (z, m, n) -> int32 (z, m, n)."""
+    _check(x, 3, "lorenzo3d_encode")
+    if x.device.type == "cpu":
+        return lorenzo_encode_ref(x, eb)
+    return _launch("lorenzo3d_encode", x, float(eb))
