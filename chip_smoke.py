@@ -5,15 +5,19 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `src/repro_torch/csrc/`, then, failing
-loudly (non-zero exit) at the first phase that goes wrong:
+It builds the CUDA kernels from `src/repro_torch/csrc/` (one nvcc per
+source, in parallel), then, failing loudly (non-zero exit) at the first
+phase that goes wrong:
 
 1. prints the card's name and power limit, the torch/CUDA versions and
    the TF32 switches;
 2. times the kernel build;
-3. parity: each kernel against its plain torch version on the card, exact,
-   at the main path's shapes and at ragged ones, with its median time, the
-   plain version's time and the bound from bytes moved;
+3. parity: each of the six kernels against its plain torch version on the
+   card, at its path's shapes and at ragged ones — K1-K4 exact, K5/K6 with
+   equal bits and recon within 1e-5 max|x| (all three transforms, blocks
+   whose maximum is an exact power of two) — with its median time, the
+   plain version's time, the bound and, for K3/K4, the time of the one
+   PyTorch call that computes the same function;
 4. the main path: CESM-ATM-like 1800x3600 fields and the first
    Hurricane-like 100x500x500 fields that Algorithm 1 gives to SZ and to
    ZFP (`benchmarks/common.py`) through `compress(...,
@@ -21,9 +25,19 @@ loudly (non-zero exit) at the first phase that goes wrong:
    `decompress`, asserting that the SZ fields ran K1 (2-D) and K2 (3-D),
    that a ZFP field is among them, that no field's device encode was
    declined and that every decoded value is within eb_abs;
-5. CPU against card at reduced sizes: decisions within the golden-suite
+5. `ops.lorenzo_decode` (K3/K4) on the main path's SZ fields, from the
+   K1/K2 codes at their eb_sz, within eb + 4 spacing(max|x|);
+6. CPU against card at reduced sizes: decisions within the golden-suite
    tolerances and container bytes equal for the same `Selection`;
-6. one JSON line with every kernel's launches, error, times and bound.
+7. the KV page tier at the full width of phi4-mini-3.8b (32 layers, 8 KV
+   heads of 128): one 2048-token request's bf16 K and V arenas on the
+   card, every page stack evicted through `compress_page` under the
+   serving policy (fixed_ratio 8, K6), restored with `decompress_page`,
+   and evicted again (all decision-cache hits); eight flat (2048, 1024)
+   pages through `bot_compress_kv` (K5); four stacks through the device
+   encoder and four raw;
+8. one JSON line with every kernel's launches on its path, error, times,
+   bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result.
@@ -32,6 +46,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,22 +62,51 @@ EB_REL = 1e-4
 #: golden-suite decision tolerances (tests/test_golden_decisions.py)
 EB_SZ_RTOL = 1e-5
 BR_ATOL = 5e-3
+RAGGED_2D = [(300, 517), (8, 128), (4, 40)]
+RAGGED_3D = [(7, 64, 64), (4, 4, 129)]
 K1_SHAPES = [(1800, 3600), (300, 517), (8, 128), (4, 40), (1, 5)]
 K2_SHAPES = [(100, 500, 500), (7, 64, 64), (4, 4, 129)]
-REPLACES = {
-    "lorenzo2d_encode": "src/repro/kernels/lorenzo.py:54",
-    "lorenzo3d_encode": "src/repro/kernels/lorenzo.py:143",
+#: phi4-mini-3.8b (src/repro/configs/phi4_mini_3_8b.py): 32 layers, 8 KV
+#: heads, head dim 3072/24 = 128; the batcher's default page of 16 tokens
+N_LAYERS, N_KV_HEADS, HEAD_DIM, PAGE_TOKENS = 32, 8, 128, 16
+REQUEST_TOKENS = 2048
+KV_RATIO = 8.0
+#: the path shapes of the KV kernels: a cross-layer page stack (K6) and one
+#: layer's K of the request as a flat page (K5)
+K6_PATH_SHAPE = (N_LAYERS, PAGE_TOKENS, N_KV_HEADS * HEAD_DIM)
+K5_PATH_SHAPE = (REQUEST_TOKENS, N_KV_HEADS * HEAD_DIM)
+KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
+    "lorenzo2d_encode": ("src/repro/kernels/lorenzo.py:54", "src/repro_torch/csrc/lorenzo.cu"),
+    "lorenzo3d_encode": ("src/repro/kernels/lorenzo.py:143", "src/repro_torch/csrc/lorenzo.cu"),
+    "dequantize2d": ("src/repro/kernels/lorenzo.py:188", "src/repro_torch/csrc/lorenzo.cu"),
+    "dequantize3d": ("src/repro/kernels/lorenzo.py:218", "src/repro_torch/csrc/lorenzo.cu"),
+    "bot2d_fused": ("src/repro/kernels/bot4.py:71", "src/repro_torch/csrc/bot4.cu"),
+    "bot3d_fused": ("src/repro/kernels/bot4.py:152", "src/repro_torch/csrc/bot4.cu"),
 }
-#: float32 operations per value: a division and a rounding, then the
-#: 2^nd - 1 additions of the n-D Lorenzo difference
-OPS_PER_VALUE = {"lorenzo2d_encode": 2 + 3, "lorenzo3d_encode": 2 + 7}
+#: float32 operations per value. Lorenzo encode: a division and a
+#: rounding, then the 2^nd - 1 additions of the n-D difference. Dequantize:
+#: one multiply. BOT: the transform pair, 7 operations (4 multiplies, 3
+#: adds) per output per axis, forward and inverse (14 * nd per value), and
+#: 13 elementwise ones (abs and max, the scaling, |c| / step, trunc, the
+#: n_sb count and sums, (m + 0.5) * step, the sign, the final division).
+OPS_PER_VALUE = {
+    "lorenzo2d_encode": 2 + 3, "lorenzo3d_encode": 2 + 7,
+    "dequantize2d": 1, "dequantize3d": 1,
+    "bot2d_fused": 14 * 2 + 13, "bot3d_fused": 14 * 3 + 13,
+}
 
 
-def bound(name: str, numel: int) -> tuple[float, str]:
+def bound(name: str, shape) -> tuple[float, str]:
     """The least time (ms) the card could take for one call, and what sets
-    it: each f32 input read once and each int32 code written once over the
-    HBM rate, against the operations over the float32 peak."""
-    by_bytes = numel * (4 + 4) / HBM_BYTES_PER_S * 1e3
+    it: each input read once and each output written once over the HBM
+    rate (4 B in and 4 B out per value; the BOT kernels also write one
+    4-byte bits value per block), against the operations over the float32
+    peak."""
+    numel = math.prod(shape)
+    nbytes = numel * (4 + 4)
+    if name.startswith("bot"):
+        nbytes += 4 * math.prod(-(-s // 4) for s in shape)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = numel * OPS_PER_VALUE[name] / FP32_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -84,14 +128,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: clock cycles the card spins before each timed call (~10 ms on an H100),
+#: longer than the host needs to enqueue any call timed here
+SPIN_CYCLES = 20_000_000
+
+
 def time_ms(torch, fn, flush, reps: int = 20) -> float:
     """Median device time of `fn` over `reps` launches, each timed with CUDA
-    events after overwriting a buffer larger than L2 (cold cache)."""
+    events after overwriting a buffer larger than L2 (cold cache). The card
+    spins (`torch.cuda._sleep`) between the flush and the start event, so
+    the host has enqueued all of `fn`'s work before the start event runs:
+    the events time the device's work, not the host's launch overhead."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -132,14 +185,123 @@ def phase_parity(torch, np, dev, flush):
             worst = max(worst, err)
         x, eb = tie_field(np, shapes[0], 99)
         xt = torch.from_numpy(x).to(dev)
+        # the plain version gets the bound as a tensor already on the card,
+        # so that no host-to-device copy synchronises inside the timing
+        eb_dev = torch.tensor(eb, dtype=torch.float32, device=dev)
         ms = time_ms(torch, lambda: kernel(xt, eb), flush)
-        plain_ms = time_ms(torch, lambda: ref.lorenzo_encode_ref(xt, eb), flush)
-        bound_ms, bound_by = bound(name, xt.numel())
+        plain_ms = time_ms(torch, lambda: ref.lorenzo_encode_ref(xt, eb_dev), flush)
+        bound_ms, bound_by = bound(name, tuple(xt.shape))
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         log("parity", f"{name}: exact at {shapes}; {list(shapes[0])}: {ms} ms "
             f"(plain {plain_ms} ms, bound {bound_ms} ms by {bound_by})")
     return results
+
+
+def pow2_max_field(np, shape, seed):
+    """Every 4-block's largest magnitude an exact power of two (the knife
+    edge of ceil(log2 max|b|)), signs mixed, ragged edges included."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, shape)
+    k = rng.integers(-6, 7, size=tuple(-(-s // 4) for s in shape))
+    scale = np.ldexp(1.0, k)
+    for axis in range(len(shape)):
+        scale = np.repeat(scale, 4, axis=axis)
+    scale = scale[tuple(slice(0, s) for s in shape)]
+    x = x * scale
+    corner = tuple(slice(0, None, 4) for _ in shape)
+    x[corner] = np.where(x[corner] < 0, -1.0, 1.0) * scale[corner]
+    return x.astype(np.float32)
+
+
+def kv_values(np, shape, seed):
+    """KV-cache-like values (layers, tokens, channels): a random walk along
+    tokens, scaled to O(1), times a per-(layer, channel) lognormal scale
+    standing in for the outlier channels of real K caches."""
+    rng = np.random.default_rng(seed)
+    walk = np.cumsum(rng.standard_normal(shape, dtype=np.float32), axis=-2, dtype=np.float32)
+    walk *= np.float32(1.0 / np.sqrt(shape[-2]))
+    walk *= np.exp(rng.standard_normal(shape[:-2] + (1, shape[-1]))).astype(np.float32)
+    return walk
+
+
+def phase_parity_dequantize(torch, np, dev, flush, results):
+    """K3/K4 exact against float32(k) * 2eb, at the decode path's shapes and
+    at ragged ones; timed beside `torch.mul(k, delta)`, the one PyTorch call
+    that computes the same function."""
+    from repro_torch.kernels import lorenzo, ref
+
+    for name, shapes in (("dequantize2d", [(1800, 3600)] + RAGGED_2D),
+                         ("dequantize3d", [(100, 500, 500)] + RAGGED_3D)):
+        kernel = getattr(lorenzo, name)
+        for i, shape in enumerate(shapes):
+            rng = np.random.default_rng(30 + i)
+            k = torch.from_numpy(rng.integers(-(2**30), 2**30, size=shape, dtype=np.int32)).to(dev)
+            eb = float(rng.uniform(1e-5, 1.0))
+            got = kernel(k, eb)
+            want = ref.dequantize_ref(k, eb)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} differs from its plain version at {shape}")
+        k = torch.from_numpy(np.random.default_rng(39).integers(
+            -(2**20), 2**20, size=shapes[0], dtype=np.int32)).to(dev)
+        eb = 1.2345e-3
+        eb_dev = torch.tensor(eb, dtype=torch.float32, device=dev)
+        delta = ref._delta(eb_dev, dev)  # 0-dim float32 on the card
+        check(torch.equal(torch.mul(k, delta), kernel(k, eb)), f"{name}: torch.mul differs")
+        ms = time_ms(torch, lambda: kernel(k, eb), flush)
+        plain_ms = time_ms(torch, lambda: ref.dequantize_ref(k, eb_dev), flush)
+        library_ms = time_ms(torch, lambda: torch.mul(k, delta), flush)
+        bound_ms, bound_by = bound(name, shapes[0])
+        results[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
+        log("parity", f"{name}: exact at {shapes}; {list(shapes[0])}: {ms} ms (plain "
+            f"{plain_ms} ms, torch.mul {library_ms} ms, bound {bound_ms} ms by {bound_by})")
+
+
+def phase_parity_bot(torch, np, dev, flush, results):
+    """K5/K6 against their plain versions: bits equal, recon within
+    1e-5 max|x| (the largest difference is printed), at the KV path's
+    shapes and at ragged ones, for zfp, hwt and dct2, on random walks and
+    on blocks whose maximum is an exact power of two; timed at the path's
+    shape on KV-like values at the bound fixed_ratio(8) solves there."""
+    from repro_torch.core.policy import Policy
+    from repro_torch.kernels import bot4, ref
+    from repro_torch.runtime import kvcomp
+
+    for name, shapes in (("bot2d_fused", [K5_PATH_SHAPE] + RAGGED_2D),
+                         ("bot3d_fused", [K6_PATH_SHAPE] + RAGGED_3D)):
+        kernel = getattr(bot4, name)
+        worst = worst_rel = 0.0
+        for i, shape in enumerate(shapes):
+            for kind in ("walk", "pow2max"):
+                if kind == "walk":
+                    rng = np.random.default_rng(40 + i)
+                    x = np.cumsum(rng.standard_normal(shape), axis=-1).astype(np.float32)
+                else:
+                    x = pow2_max_field(np, shape, 50 + i)
+                xt = torch.from_numpy(x).to(dev)
+                eb = 1e-3 * float(x.max() - x.min())
+                for transform in ("zfp", "hwt", "dct2"):
+                    recon, bits = kernel(xt, eb, transform)
+                    want_r, want_b = ref.bot_fused_ref(xt, eb, transform)
+                    torch.cuda.synchronize()
+                    check(torch.equal(bits, want_b),
+                          f"{name} bits differ from the plain version at {shape} {kind} {transform}")
+                    err = float((recon - want_r).abs().max())
+                    tol = 1e-5 * float(np.abs(x).max())
+                    check(err <= tol, f"{name} recon off by {err} > {tol} at {shape} {kind} {transform}")
+                    worst = max(worst, err)
+                    worst_rel = max(worst_rel, err / float(np.abs(x).max()))
+        path = torch.from_numpy(kv_values(np, shapes[0], 60)).to(dev)
+        eb = kvcomp._policy_eb(path, kvcomp._value_range(path), Policy.fixed_ratio(KV_RATIO))
+        ms = time_ms(torch, lambda: kernel(path, eb), flush)
+        plain_ms = time_ms(torch, lambda: ref.bot_fused_ref(path, eb), flush)
+        bound_ms, bound_by = bound(name, shapes[0])
+        results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+        log("parity", f"{name}: bits equal at {shapes} (walk and power-of-two-max blocks; "
+            f"zfp, hwt, dct2); largest recon difference {worst} ({worst_rel} of max|x|); "
+            f"{list(shapes[0])}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by})")
 
 
 def phase_main(torch, np, dev):
@@ -238,6 +400,29 @@ def phase_kernels_at_main(torch, dev, rows, parity):
     log("main", f"kernels exact at eb_sz on {names}")
 
 
+def phase_decode(torch, np, dev, rows):
+    """`ops.lorenzo_decode` (prefix sum, then K3/K4) on the main path's SZ
+    fields, from the K1/K2 codes at their eb_sz. Returns the K3/K4 launch
+    counts of this run."""
+    from repro_torch.kernels import lorenzo, ops
+
+    lorenzo.reset_launches()
+    for row, x, cf in rows:
+        if cf.codec != "sz":
+            continue
+        eb = cf.selection.eb_sz
+        y = ops.lorenzo_decode(ops.lorenzo_encode(torch.from_numpy(x).to(dev), eb), eb)
+        torch.cuda.synchronize()
+        err = float(np.max(np.abs(y.cpu().numpy().astype(np.float64) - x)))
+        tol = eb + 4 * float(np.spacing(np.float32(np.abs(x).max())))
+        check(err <= tol, f"{row['field']}: lorenzo_decode off by {err} > {tol}")
+        log("decode", f"{row['field']} {list(x.shape)}: max|decode - x| = {err} <= {tol}")
+    launches = {k: lorenzo.LAUNCHES[k] for k in ("dequantize2d", "dequantize3d")}
+    check(launches["dequantize2d"] >= 1, "K3 never launched on the decode path")
+    check(launches["dequantize3d"] >= 1, "K4 never launched on the decode path")
+    return launches
+
+
 def phase_cpu_vs_card(torch, np, dev):
     from benchmarks.common import atm_suite, hurricane_suite
     from repro_torch.core import encode_with_selection, select
@@ -264,6 +449,184 @@ def phase_cpu_vs_card(torch, np, dev):
     log("cpu-vs-card", f"{len(fields)} fields, {identical} decisions bit-identical")
 
 
+def phase_kv(torch, np, dev):
+    """The KV page tier at phi4-mini-3.8b's full width. Returns the launch
+    counts of K6 (the eviction) and K5 (the flat pages)."""
+    from repro_torch.core import device_encode as de
+    from repro_torch.core.decision_cache import DecisionCache
+    from repro_torch.core.policy import Policy, serving_policies
+    from repro_torch.core.zfp import zfp_decompress
+    from repro_torch.kernels import bot4, ops
+    from repro_torch.runtime import kvcomp
+
+    n_pages = REQUEST_TOKENS // PAGE_TOKENS
+    width = N_KV_HEADS * HEAD_DIM
+    t0 = time.perf_counter()
+    arenas = {}
+    for i, key in enumerate(("k", "v")):
+        # the batcher's arena layout, page 0 reserved as scratch
+        arena = torch.zeros((N_LAYERS, n_pages + 1, PAGE_TOKENS, N_KV_HEADS, HEAD_DIM),
+                            dtype=torch.bfloat16, device=dev)
+        vals = torch.from_numpy(kv_values(np, (N_LAYERS, REQUEST_TOKENS, width), 70 + i))
+        arena[:, 1:] = vals.to(dev).reshape(arena[:, 1:].shape).to(torch.bfloat16)
+        arenas[key] = arena
+    torch.cuda.synchronize()
+    log("kv", f"K and V arenas {list(arenas['k'].shape)} bf16 on the card, "
+        f"{2 * arenas['k'].numel() * 2 / 2**20:.0f} MiB, made in {time.perf_counter() - t0:.1f} s")
+
+    def stacks():
+        for key, arena in arenas.items():
+            for p in range(n_pages):
+                yield f"kv/long/0/{key}{p}", arena[:, 1 + p].reshape(N_LAYERS, PAGE_TOKENS, -1)
+
+    pol = serving_policies(KV_RATIO).resolve("kv/long/0")
+    check(pol.mode == "fixed_ratio", f"serving policy for a long request is {pol.mode}")
+    cache = DecisionCache()
+
+    def evict_all():
+        out, ms = {}, []
+        for name, page in stacks():
+            t = time.perf_counter()
+            out[name] = kvcomp.compress_page(page, pol, cache=cache, name=name, device=dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms
+
+    warm = next(stacks())[1]
+    kvcomp.compress_page(warm, pol, device=dev)  # warm the code paths
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bot4.reset_launches()
+    stored, evict_ms = evict_all()
+    k6_launches = bot4.LAUNCHES["bot3d_fused"]
+    n_bot = sum(cp.codec == "bot" for cp in stored.values())
+    check(n_bot == len(stored) == 2 * n_pages, f"{n_bot} of {len(stored)} stacks took the bot path")
+    check(k6_launches == n_bot, f"K6 launched {k6_launches} times for {n_bot} bot pages")
+    check(all(cache.events[n] == "miss" for n in stored), "first eviction was not all misses")
+
+    restore_ms, worst = [], 0.0
+    for name, page in stacks():
+        cp = stored[name]
+        t = time.perf_counter()
+        back = kvcomp.decompress_page(cp, device=dev)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t) * 1e3)
+        check(back.dtype == torch.bfloat16 and tuple(back.shape) == tuple(page.shape),
+              f"{name}: restored {back.dtype} {tuple(back.shape)}")
+        b32 = back.float()
+        err = (b32 - page.float()).abs()
+        check(bool((err <= cp.eb + 2.0**-8 * b32.abs()).all()),
+              f"{name}: restored values off by more than eb + bf16 rounding")
+        worst = max(worst, float(err.max()) / cp.eb)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # exact bit accounting: nbytes is ceil(sum(bits) / 8) of the kernel's bits
+    for name, page in stacks():
+        cp = stored[name]
+        _, bits = ops.bot_fused(page.float(), cp.eb)
+        total = float(bits.sum(dtype=torch.float64))
+        check(cp.nbytes == -(-int(total) // 8), f"{name}: nbytes {cp.nbytes} vs bits {total}")
+
+    again, evict2_ms = evict_all()
+    check(all(cache.events[n] == "hit" for n in again), "re-eviction was not all cache hits")
+    check(all(again[n].eb == stored[n].eb and again[n].nbytes == stored[n].nbytes for n in stored),
+          "re-eviction changed a bound or a byte count")
+
+    # where an evict's time goes: its steps one at a time on 32 stacks,
+    # each ending in a synchronize (host clock)
+    steps = {"page_to_f32": [], "fingerprint": [], "ratio_grid_solve": [],
+             "bot3d_fused": [], "recon_to_host": []}
+    for _, (name, page) in zip(range(32), stacks()):
+        marks = [time.perf_counter()]
+        page32 = page.to(torch.float32).contiguous()
+        vr = kvcomp._value_range(page32)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        kvcomp._page_fingerprint(page, float(vr), pol)
+        marks.append(time.perf_counter())
+        eb = kvcomp._policy_eb(page32, vr, pol)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        recon, bits = ops.bot_fused(page32, eb)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        recon.to(torch.bfloat16).cpu()
+        float(bits.sum(dtype=torch.float64))
+        marks.append(time.perf_counter())
+        for key, a, b in zip(steps, marks, marks[1:]):
+            steps[key].append((b - a) * 1e3)
+    log("kv", "evict steps, median ms over 32 stacks: " + json.dumps(
+        {k: statistics.median(v) for k, v in steps.items()}))
+
+    raw_bytes = N_LAYERS * PAGE_TOKENS * width * 2
+    ratios = [raw_bytes / cp.nbytes for cp in stored.values()]
+    summary = dict(
+        stacks=len(stored), stack_shape=list(K6_PATH_SHAPE), dtype="bfloat16",
+        ratio_median=statistics.median(ratios), ratio_min=min(ratios), ratio_max=max(ratios),
+        evict_ms_median=statistics.median(evict_ms), evict_ms_total=sum(evict_ms),
+        restore_ms_median=statistics.median(restore_ms), restore_ms_total=sum(restore_ms),
+        reevict_ms_median=statistics.median(evict2_ms), reevict_ms_total=sum(evict2_ms),
+        max_err_over_eb=worst, peak_gib=peak_gib, k6_launches=k6_launches,
+        cache=cache.stats(),
+    )
+    log("kv", json.dumps(summary))
+
+    # one layer's K of the request as a flat page, through bot_compress_kv (K5)
+    flat = arenas["k"][:, 1:].reshape(N_LAYERS, REQUEST_TOKENS, width)
+    bot4.reset_launches()
+    for layer in range(8):
+        page = flat[layer].float()
+        for fpol in (None, Policy.fixed_ratio(KV_RATIO)):
+            recon, bits = kvcomp.bot_compress_kv(page, fpol)
+            eb = float(kvcomp._policy_eb(page, kvcomp._value_range(page),
+                                         fpol or kvcomp.DEFAULT_KV_POLICY))
+            err = float((recon - page).abs().max())
+            check(recon.dtype == torch.float32 and err <= eb,
+                  f"flat page {layer}: max err {err} > eb {eb}")
+    k5_launches = bot4.LAUNCHES["bot2d_fused"]
+    check(k5_launches == 16, f"K5 launched {k5_launches} times for 16 flat pages")
+    log("kv", f"8 flat {list(K5_PATH_SHAPE)} pages under the default policy and fixed_ratio(8): "
+        f"within eb, K5 launched {k5_launches} times")
+
+    # the other codecs: the device encoder's ZFJX bytes, and raw. Under
+    # the serving bound and under the page default (eb_rel 1e-2); a page the
+    # device encoder declines (its rate model sized the arena too small)
+    # takes the bot path, as in the reference
+    pages = list(stacks())
+    zfp_pages, declines = 0, sum(de.DECLINES.values())
+    for dpol in (pol, kvcomp.DEFAULT_KV_POLICY):
+        for name, page in pages[:4]:
+            cp = kvcomp.compress_page(page, dpol, device_encode=True, device=dev)
+            check(cp.codec in ("zfp", "bot"), f"{name}: codec {cp.codec}")
+            if cp.codec == "zfp":
+                zfp_pages += 1
+                check(cp.nbytes == len(cp.payload) < raw_bytes, f"{name}: ZFJX does not beat raw")
+                rec = torch.from_numpy(zfp_decompress(cp.payload)).to(dev)
+                err = float((rec - page.float()).abs().max())
+                check(err <= cp.eb, f"{name}: ZFJX page decodes off by {err} > eb {cp.eb}")
+                log("kv", f"{name} ({dpol.mode}): device-encoded ZFJX, ratio "
+                    f"{raw_bytes / cp.nbytes}, max err / eb {err / cp.eb}")
+    declined = sum(de.DECLINES.values()) - declines
+    check(zfp_pages >= 1, "no page stack took the device encoder")
+    log("kv", f"{zfp_pages} of 8 device-encode calls gave ZFJX bytes, {declined} declined "
+        f"({dict(de.DECLINES)})")
+    for name, page in pages[-4:]:
+        cp = kvcomp.compress_page(page, Policy.raw(), device=dev)
+        back = kvcomp.decompress_page(cp, device=dev)
+        check(torch.equal(back.view(torch.int16), page.contiguous().view(torch.int16)),
+              f"{name}: raw page not bit-identical")
+    log("kv", "4 raw stacks restore bit-identical")
+
+    # the same stacks on the CPU: same decisions and byte counts
+    for name, page in (pages[0], pages[-1]):
+        on_card = kvcomp.compress_page(page, pol, device=dev)
+        on_cpu = kvcomp.compress_page(page.cpu(), pol, device="cpu")
+        check((on_card.codec, on_card.eb, on_card.nbytes) == (on_cpu.codec, on_cpu.eb, on_cpu.nbytes),
+              f"{name}: card ({on_card.eb}, {on_card.nbytes}) vs CPU ({on_cpu.eb}, {on_cpu.nbytes})")
+    log("kv", "card and CPU give the same bound and bytes on 2 stacks")
+    return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
+
+
 def main() -> int:
     import torch
 
@@ -285,24 +648,31 @@ def main() -> int:
         f"matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    _build.build(verbose=True)
-    _build.load()
-    log("build", f"{_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build(verbose=True)
+    for name in libs:
+        _build.load(name)
+    log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB > L2
     parity = phase_parity(torch, np, dev, flush)
+    phase_parity_dequantize(torch, np, dev, flush, parity)
+    phase_parity_bot(torch, np, dev, flush, parity)
     del flush
     rows, launches = phase_main(torch, np, dev)
     phase_kernels_at_main(torch, dev, rows, parity)
+    launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)
+    launches.update(phase_kv(torch, np, dev))
 
     kernels = []
-    for name, p in parity.items():
+    for name, (replaces, source) in KERNELS.items():
+        p = parity[name]
+        check(launches[name] > 0, f"{name} was never launched on its path")
         kernels.append(dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/lorenzo.cu",
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
-            bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None,
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=p["max_abs_err"], ms=p["ms"],
+            plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+            library_ms=p["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,9 @@
 """Online compression-quality estimation (paper §4.3, §5 — Steps 1 & 2),
-single-field part, in torch.
+in torch.
 
-Port of `repro.core.estimator`. From a small blockwise sample (default
-r_sp = 5%) of one field:
+Port of `repro.core.estimator`: the single-field part and the batched ZFP
+estimate (`field_sums`, `estimate_zfp_many`); `estimate_sz_many` is not
+ported yet. From a small blockwise sample (default r_sp = 5%) of a field:
 
 * SZ: PSNR in closed form from the bin size (Eq. (11)); bit-rate from the
   entropy of the sampled integer Lorenzo residuals (Eq. (9)) with the
@@ -26,7 +27,9 @@ import torch
 
 from .embedded import (
     BLOCK_HEADER_BITS,
+    block_bits,
     exact_coder_bits,
+    exact_coder_bits_blocks,
     k_width,
     plane_step,
     significant_bits,
@@ -292,4 +295,82 @@ def estimate_zfp(
     mse_sp = torch.mean(torch.square(err))
     vr32 = torch.clamp_min(_f32(vr, dev), 1e-30)
     psnr = -10.0 * torch.log10(torch.clamp_min(mse_sp, 1e-60)) + 20.0 * torch.log10(vr32)
+    return Estimate(bitrate=bitrate, psnr=psnr)
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-field estimation
+#
+# Sampled blocks of many fields are packed along one leading axis in field
+# order: blocks [bounds[f], bounds[f+1]) belong to field f. Every per-field
+# quantity is a prefix sum and two boundary gathers.
+# ---------------------------------------------------------------------------
+
+
+def field_sums(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Per-field sums of field-ordered rows: x is (S,) or (S, C) with rows
+    [bounds[f], bounds[f+1]) belonging to field f; returns (F,) / (F, C).
+
+    The window is a difference of two global prefix sums, taken in `x`'s
+    own dtype: integer columns accumulate exactly in int32 (torch would
+    otherwise widen to int64), and float columns should be normalized per
+    field first so the small fields do not cancel away."""
+    cs = torch.cumsum(x, dim=0, dtype=x.dtype)
+    cs = torch.cat([torch.zeros_like(cs[:1]), cs], dim=0)
+    bounds = bounds.to(device=x.device, dtype=torch.int64)
+    return cs[bounds[1:]] - cs[bounds[:-1]]
+
+
+def estimate_zfp_many(
+    blocks: torch.Tensor,
+    seg: torch.Tensor,
+    bounds: torch.Tensor,
+    eb_f: torch.Tensor,
+    vr_f: torch.Tensor,
+    transform: str = "zfp",
+    mode: str = "exact",
+) -> Estimate:
+    """`estimate_zfp` for a packed batch of blocks from many fields.
+    `blocks` is (total_blocks, 4, ..) in field order, seg[i] = field of
+    block i, bounds the (n_fields+1,) block boundary array; returns
+    per-field Estimate tensors of shape (n_fields,).
+
+    mode='exact' — the exact coder bit counter (31-plane loop);
+    mode='model' — the closed-form `block_bits` coder model (one pass).
+    Per-block work equals the single-field path's; only the final means
+    become boundary-windowed prefix sums (bits in int32, the error energy
+    normalized by each field's vr^2 before its prefix sum).
+    """
+    nd = blocks.ndim - 1
+    bsz = 4**nd
+    dev = blocks.device
+    blocks = blocks.to(torch.float32)
+    seg = seg.to(device=dev, dtype=torch.int64)
+    bounds = bounds.to(device=dev, dtype=torch.int64)
+    n_s = blocks.shape[0]
+    mx = torch.clamp_min(torch.amax(blocks.reshape(n_s, -1).abs(), dim=1), 1e-30)
+    e = torch.ceil(torch.log2(mx)).to(torch.int32)
+    norm = blocks * torch.exp2(-e.to(torch.float32)).reshape((-1,) + (1,) * nd)
+    coeffs = block_transform_nd(norm, bot_matrix(transform), nd)
+    gain_n = bot_linf_gain(transform) ** nd
+    step = plane_step(eb_f.to(device=dev, dtype=torch.float32)[seg], e, gain_n)
+    if mode == "exact":
+        bits_blk = exact_coder_bits_blocks(coeffs, step)  # integer-valued
+    else:
+        bits_blk = block_bits(coeffs, step)  # integer-valued
+    # PSNR from the EC sample points, as in estimate_zfp
+    sel = torch.as_tensor(np.flatnonzero(_ec_point_mask(nd).reshape(-1)), device=dev)
+    s = step.reshape(-1, 1).to(torch.float32)
+    co = coeffs.reshape(n_s, -1)[:, sel]
+    m = torch.trunc(co.abs() / s)
+    rec = torch.sign(co) * torch.where(m > 0, (m + 0.5) * s, torch.zeros_like(m))
+    scale = torch.exp2(e.to(torch.float32)).reshape(-1, 1)
+    vr32 = torch.clamp_min(vr_f.to(device=dev, dtype=torch.float32), 1e-30)
+    err2n_blk = torch.sum(torch.square((co - rec) * scale), dim=1) / torch.square(vr32[seg])
+    bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
+    err2n_f = field_sums(err2n_blk, bounds)
+    nblk_f = (bounds[1:] - bounds[:-1]).to(torch.float32)
+    bitrate = bits_f / torch.clamp_min(nblk_f * bsz, 1.0)
+    mse_over_vr2 = err2n_f / torch.clamp_min(nblk_f * len(sel), 1.0)
+    psnr = -10.0 * torch.log10(torch.clamp_min(mse_over_vr2, 1e-60))
     return Estimate(bitrate=bitrate, psnr=psnr)

@@ -9,7 +9,9 @@ this package stays free of JAX) and return the port's types:
   so a reference decision can drive the port's encoders and the streams
   can be compared byte for byte;
 * `policy_from_spec(spec)` — a reference `Policy.spec()` dict -> the
-  port's `Policy`.
+  port's `Policy`;
+* `decision_cache_from_manifest(record)` — a reference
+  `DecisionCache.to_manifest()` record -> the port's `DecisionCache`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from dataclasses import fields
 from typing import Mapping
 
+from .decision_cache import DecisionCache
 from .policy import Policy
 from .selector import Selection
 
@@ -31,3 +34,12 @@ def selection_from_reference(d: Mapping) -> Selection:
 def policy_from_spec(spec: Mapping) -> Policy:
     """The port's `Policy` for a reference `Policy.spec()` dict."""
     return Policy.from_spec(dict(spec))
+
+
+def decision_cache_from_manifest(record: Mapping) -> DecisionCache:
+    """The port's `DecisionCache` for a reference `DecisionCache.to_manifest()`
+    record given as plain JSON values: same tolerance, same entries, so a
+    bound the reference solved replays in the port."""
+    cache = DecisionCache(tolerance=float(record.get("tolerance", 0.0)))
+    cache.load_manifest(dict(record))
+    return cache

@@ -275,3 +275,32 @@ class PolicySet:
             if _rule_matches(pat, name):
                 return pol
         return self.default
+
+
+# ---------------------------------------------------------------------------
+# Serving-tier policies
+# ---------------------------------------------------------------------------
+
+
+def serving_policies(
+    target_ratio: float = 8.0, *, r_sp: float = DEFAULT_R_SP
+) -> PolicySet:
+    """The serving tier's stock PolicySet: long-context requests
+    (``kv/long/*``) trade KV page fidelity for a `fixed_ratio` byte budget
+    on evicted pages; short requests stay `raw` (evict/restore is
+    bit-identical)."""
+    return PolicySet(
+        default=Policy.raw(),
+        rules=(("kv/long/*", Policy.fixed_ratio(target_ratio, r_sp=r_sp)),),
+    )
+
+
+def as_policy_set(policy) -> PolicySet:
+    """Coerce a Policy | PolicySet into a PolicySet."""
+    if isinstance(policy, PolicySet):
+        return policy
+    if isinstance(policy, Policy):
+        return PolicySet(default=policy)
+    raise TypeError(
+        f"expected Policy or PolicySet, got {type(policy).__name__}: {policy!r}"
+    )

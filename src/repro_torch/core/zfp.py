@@ -1,12 +1,16 @@
-"""ZFP-style transform-based error-bounded lossy compressor (paper §2, §5.2):
-the host byte codec.
+"""ZFP-style transform-based error-bounded lossy compressor (paper §2, §5.2).
 
-Port of the byte-codec half of `repro.core.zfp`. Pipeline: 4^n blocking ->
-exponent alignment -> block orthogonal transform T(t) -> truncation at a
-conservative power-of-two plane step -> the plane-sectioned, degree-ordered
-k-prefix embedded coder, laid out plane-major across all blocks so encode
-and decode vectorize over blocks. Quantization runs in float64; streams
-(``ZFJX``) are byte-identical to the reference's.
+Port of `repro.core.zfp`, two paths:
+
+* `zfp_stats` — in-graph (torch, on the field's device) reconstruction and
+  exact rate/distortion, float32;
+* `zfp_compress` / `zfp_decompress` — the host byte codec. Pipeline: 4^n
+  blocking -> exponent alignment -> block orthogonal transform T(t) ->
+  truncation at a conservative power-of-two plane step -> the
+  plane-sectioned, degree-ordered k-prefix embedded coder, laid out
+  plane-major across all blocks so encode and decode vectorize over
+  blocks. Quantization runs in float64; streams (``ZFJX``) are
+  byte-identical to the reference's.
 
 Pointwise guarantee |x - x~| <= eb via the conservative plane cutoff.
 """
@@ -14,15 +18,67 @@ Pointwise guarantee |x - x~| <= eb via the conservative plane cutoff.
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import as_f32
-from .embedded import degree_order, k_width
-from .transforms import blockize, bot_linf_gain, bot_matrix, unblockize
+from .embedded import (
+    align_blocks,
+    degree_order,
+    exact_coder_bits,
+    k_width,
+    plane_step,
+    reconstruct_truncated,
+    significant_bits,
+)
+from .transforms import blockize, block_transform_nd, bot_linf_gain, bot_matrix, unblockize
 
 _MAGIC = b"ZFJX"
+
+
+# ---------------------------------------------------------------------------
+# in-graph statistics path
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ZFPStats:
+    bitrate: torch.Tensor
+    psnr: torch.Tensor
+    mse: torch.Tensor
+    recon: torch.Tensor
+    mean_nsb: torch.Tensor  # the paper's n_sb-bar estimate target
+
+
+def zfp_stats(x: torch.Tensor, eb, transform: str = "zfp") -> ZFPStats:
+    """Exact rate/distortion of the ZFP path on `x`'s device, float32
+    (edge-replicated blocking, as the byte codec)."""
+    xf = x.to(torch.float32)
+    n = xf.ndim
+    T = bot_matrix(transform)
+    gain_n = bot_linf_gain(transform) ** n
+    blocks, padded = blockize(xf)
+    norm, e = align_blocks(blocks)
+    coeffs = block_transform_nd(norm, T, n)
+    step = plane_step(torch.as_tensor(eb, dtype=torch.float32, device=xf.device), e, gain_n)
+    rec_coeffs = reconstruct_truncated(coeffs, step)
+    total_bits = exact_coder_bits(coeffs, step)
+    rec_norm = block_transform_nd(rec_coeffs, T, n, inverse=True)
+    rec_blocks = rec_norm * torch.exp2(e.to(torch.float32)).reshape((-1,) + (1,) * n)
+    recon = unblockize(rec_blocks, padded, tuple(xf.shape))
+    nsb = significant_bits(coeffs, step)
+    mse = torch.mean(torch.square(xf - recon))
+    vr = torch.clamp_min(torch.amax(xf) - torch.amin(xf), 1e-30)
+    psnr = -10.0 * torch.log10(torch.clamp_min(mse, 1e-60) / (vr * vr))
+    bitrate = total_bits / xf.numel()
+    return ZFPStats(bitrate=bitrate, psnr=psnr, mse=mse, recon=recon, mean_nsb=torch.mean(nsb))
+
+
+# ---------------------------------------------------------------------------
+# host byte codec
+# ---------------------------------------------------------------------------
 
 
 def _prepare_blocks(x: np.ndarray, eb: float, transform: str):

@@ -1,8 +1,11 @@
-// Fused prequantize + integer Lorenzo encode (SZ's Stage I+II) for Hopper.
+// Fused prequantize + integer Lorenzo encode (SZ's Stage I+II), and the
+// decode side's dequantize, for Hopper.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/lorenzo.py:
 //   lorenzo2d_encode_kernel  <- lorenzo2d_encode (body _encode_kernel)
 //   lorenzo3d_encode_kernel  <- lorenzo3d_encode (body _encode3d_kernel)
+//   dequantize_kernel        <- dequantize2d and dequantize3d (body
+//                               _dequant_kernel), see the note further down
 //
 // Each output is d = Lorenzo difference of the codes k = rint(x / (2 eb)),
 // with codes outside the domain taken as 0. The arithmetic is the
@@ -103,6 +106,59 @@ __global__ void lorenzo3d_encode_kernel(const float* __restrict__ x,
   }
 }
 
+// Dequantize (K3/K4): out = float(k) * delta, elementwise, delta = 2.0f * eb
+// rounded as the encode rounds it and the int32 -> float32 conversion
+// rounded to nearest even, as the reference's astype. The TPU kernel walked
+// (256,256) or (8,128,256) VMEM tiles; the op has no neighbours, so here
+// the rank only names the entry point and both run one flat kernel. Bound:
+// bytes (4 B read, 4 B written per value, one multiply). Each thread moves
+// 16 B per access (int4 in, float4 out) when both pointers are 16-byte
+// aligned, over a grid-stride loop; the tail and unaligned views go scalar.
+__global__ void dequantize_vec_kernel(const int4* __restrict__ k,
+                                      float4* __restrict__ out, int64_t n4,
+                                      float delta) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int4 v = k[i];
+    out[i] = make_float4(__int2float_rn(v.x) * delta, __int2float_rn(v.y) * delta,
+                         __int2float_rn(v.z) * delta, __int2float_rn(v.w) * delta);
+  }
+}
+
+__global__ void dequantize_kernel(const int32_t* __restrict__ k,
+                                  float* __restrict__ out, int64_t lo,
+                                  int64_t n, float delta) {
+  for (int64_t i = lo + blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    out[i] = __int2float_rn(k[i]) * delta;
+  }
+}
+
+int dequantize(const int32_t* k, float* out, int64_t n, float eb,
+               cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const float delta = 2.0f * eb;
+  constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per SM, then stride
+  const bool aligned = (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const int64_t n4 = aligned ? n / 4 : 0;
+  if (n4 > 0) {
+    int64_t blocks = (n4 + kThreads - 1) / kThreads;
+    blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
+    dequantize_vec_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        reinterpret_cast<const int4*>(k), reinterpret_cast<float4*>(out), n4,
+        delta);
+  }
+  const int64_t lo = 4 * n4;
+  if (lo < n) {
+    int64_t blocks = (n - lo + kThreads - 1) / kThreads;
+    blocks = blocks < kMaxBlocks ? blocks : kMaxBlocks;
+    dequantize_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        k, out, lo, n, delta);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Each launches on `stream` and returns the
@@ -131,4 +187,16 @@ extern "C" int lorenzo3d_encode(const float* x, int32_t* out, int64_t nz,
                             static_cast<cudaStream_t>(stream)>>>(
       x, out, nz, m, n, delta, x_tiles, y_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dequantize2d(const int32_t* k, float* out, int64_t m, int64_t n,
+                            float eb, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  return dequantize(k, out, m * n, eb, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dequantize3d(const int32_t* k, float* out, int64_t nz, int64_t m,
+                            int64_t n, float eb, void* stream) {
+  if (nz <= 0 || m <= 0 || n <= 0) return 0;
+  return dequantize(k, out, nz * m * n, eb, static_cast<cudaStream_t>(stream));
 }

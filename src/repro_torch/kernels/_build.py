@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-`load()` compiles ``csrc/lorenzo.cu`` with nvcc for Hopper (``sm_90a``)
-into a shared library with a plain C interface, the first time a kernel is
-launched, and binds it with ctypes. The library lands in ``build/kernels/``
-at the repository root (listed in ``.gitignore``) under a name keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+Each source in ``csrc/`` (`SOURCES`) is compiled with nvcc for Hopper
+(``sm_90a``) into its own shared library with a plain C interface, the
+first time one of its kernels is launched, and bound with ctypes. The
+libraries land in ``build/kernels/`` at the repository root (listed in
+``.gitignore``) under names keyed by a hash of the source and the flags, so
+an edited source rebuilds and an unchanged one is reused. `build()` starts
+one nvcc per missing library, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -20,10 +21,15 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "lorenzo.cu"
+#: library name -> CUDA source
+SOURCES = {
+    "lorenzo": _PKG / "csrc" / "lorenzo.cu",
+    "bot4": _PKG / "csrc" / "bot4.cu",
+}
 BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
-#: IEEE division and no contracted multiply-adds: the codes must match the
-#: reference bit for bit, so no --use_fast_math
+#: IEEE division and no contracted multiply-adds: the codes and the BOT
+#: coefficients must match the plain versions bit for bit, so no
+#: --use_fast_math
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -34,6 +40,23 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+
+_ptr, _i64, _f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+#: C signatures per library: function -> argument types (all return int,
+#: the launch's cudaError_t)
+SIGNATURES = {
+    "lorenzo": {
+        "lorenzo2d_encode": [_ptr, _ptr, _i64, _i64, _f32, _ptr],
+        "lorenzo3d_encode": [_ptr, _ptr, _i64, _i64, _i64, _f32, _ptr],
+        "dequantize2d": [_ptr, _ptr, _i64, _i64, _f32, _ptr],
+        "dequantize3d": [_ptr, _ptr, _i64, _i64, _i64, _f32, _ptr],
+    },
+    "bot4": {
+        # x, recon, bits, shape..., eb (device pointer), T (16 floats), gain^n, stream
+        "bot2d_fused": [_ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr, _f32, _ptr],
+        "bot3d_fused": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr, _ptr, _f32, _ptr],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -46,44 +69,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"liblorenzo-{digest.hexdigest()[:16]}.so"
+def library_path(name: str) -> Path:
+    source = SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless this source's library already exists."""
-    out = library_path()
-    if out.exists():
+def build(names=None, verbose: bool = False) -> dict[str, Path]:
+    """Compile the named libraries (default: all) unless they exist; one
+    nvcc per library, run in parallel. Returns name -> library path."""
+    names = list(SOURCES) if names is None else list(names)
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+    jobs = []
     try:
-        proc = subprocess.run(
-            cmd + ["-o", tmp, str(SOURCE)], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                cmd + ["-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            jobs.append((name, tmp, proc))
+        errors = []
+        for name, tmp, proc in jobs:
+            _, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{stderr}")
+                continue
+            if verbose:
+                print(f"{SOURCES[name].name}: {stderr.strip()}")
+            os.replace(tmp, out[name])  # atomic: a concurrent loader sees all or nothing
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use, with its C signatures."""
-    lib = ctypes.CDLL(str(build()))
-    ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    lib.lorenzo2d_encode.argtypes = [ptr, ptr, i64, i64, f32, ptr]
-    lib.lorenzo2d_encode.restype = ctypes.c_int
-    lib.lorenzo3d_encode.argtypes = [ptr, ptr, i64, i64, i64, f32, ptr]
-    lib.lorenzo3d_encode.restype = ctypes.c_int
+def load(name: str) -> ctypes.CDLL:
+    """The named kernels' library, built on first use, with its C signatures."""
+    lib = ctypes.CDLL(str(build([name])[name]))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -1,18 +1,22 @@
-"""Public kernel-tier entry: rank dispatch for the Lorenzo encode.
+"""Public kernel-tier entry: rank dispatch for the Lorenzo encode and
+decode and the fused BOT.
 
-Port of `repro.kernels.ops.lorenzo_encode`. One shared predicate,
-`pallas_rank`, decides which shapes ride the kernels: every non-empty 2-D
-or 3-D shape goes to K1 or K2, every other rank takes the plain
-`lorenzo_forward` path. The CUDA kernels mask ragged edges themselves, so
-none of the reference's TPU padding and tile clamping is needed.
+Port of `repro.kernels.ops`. One shared predicate, `pallas_rank`, decides
+which shapes ride the kernels: every non-empty 2-D or 3-D shape goes to
+its kernel (K1/K2 for `lorenzo_encode`, K3/K4 for `lorenzo_decode`, K5/K6
+for `bot_fused`), every other rank takes the plain path. The CUDA kernels
+mask ragged edges themselves (the BOT kernels count values outside the
+field as zero, as the reference's zero padding does), so none of the
+reference's TPU padding and tile clamping is needed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.transforms import lorenzo_forward
-from . import lorenzo
+from ..core.transforms import lorenzo_forward, lorenzo_inverse
+from ..core.zfp import zfp_stats
+from . import bot4, lorenzo
 
 
 def pallas_rank(shape: tuple[int, ...]) -> int | None:
@@ -34,3 +38,28 @@ def lorenzo_encode(x: torch.Tensor, eb: float) -> torch.Tensor:
         return lorenzo.lorenzo3d_encode(x, eb)
     delta = 2.0 * torch.as_tensor(eb, dtype=torch.float32, device=x.device)
     return lorenzo_forward(torch.round(x / delta)).to(torch.int32)
+
+
+def lorenzo_decode(d: torch.Tensor, eb: float) -> torch.Tensor:
+    """Inverse Lorenzo (n-D prefix sum, float32) + dequantize -> float32
+    reconstruction. The prefix sum is cast to int32 before K3/K4, as the
+    reference casts it."""
+    k = lorenzo_inverse(d.to(torch.float32))
+    rank = pallas_rank(tuple(d.shape))
+    if rank == 2:
+        return lorenzo.dequantize2d(k.to(torch.int32).contiguous(), eb)
+    if rank == 3:
+        return lorenzo.dequantize3d(k.to(torch.int32).contiguous(), eb)
+    return k * (2.0 * torch.as_tensor(eb, dtype=torch.float32, device=d.device))
+
+
+def bot_fused(x: torch.Tensor, eb, transform: str = "zfp"):
+    """Fused ZFP-style transform/truncate -> (recon, bits per block); other
+    ranks than 2 and 3 return (`zfp_stats` reconstruction, None)."""
+    x = x.to(torch.float32).contiguous()
+    rank = pallas_rank(tuple(x.shape))
+    if rank == 2:
+        return bot4.bot2d_fused(x, eb, transform)
+    if rank == 3:
+        return bot4.bot3d_fused(x, eb, transform)
+    return zfp_stats(x, eb, transform=transform).recon, None

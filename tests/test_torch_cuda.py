@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-main path on the GPU against the same path on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, the
+main path and the KV page tier on the GPU against the same paths on the
+CPU.
 
 Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The file
 imports neither JAX nor the reference package, so it runs on a machine that
@@ -15,7 +16,9 @@ import torch
 
 from repro_torch.core import Policy, compress, decompress, encode_with_selection, select
 from repro_torch.core import device_encode as de
-from repro_torch.kernels import lorenzo, ref
+from repro_torch.core.decision_cache import DecisionCache
+from repro_torch.kernels import bot4, lorenzo, ops, ref
+from repro_torch.runtime import kvcomp
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +100,121 @@ def test_main_path_on_card_equals_cpu(cuda_device, shape, codecs):
     out = decompress(cf, device=cuda_device)
     assert out.device.type == cuda_device.type and tuple(out.shape) == shape
     assert float((out.cpu() - torch.from_numpy(x)).abs().max()) <= cf.selection.eb_abs
+
+
+def pow2_max_field(shape, seed):
+    """Every 4-block's largest magnitude an exact power of two (the knife
+    edge of ceil(log2 max|b|)), signs mixed, ragged edges included."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, shape)
+    grid = tuple(-(-s // 4) for s in shape)
+    k = rng.integers(-6, 7, size=grid)
+    scale = np.ldexp(1.0, k)
+    for axis in range(len(shape)):
+        scale = np.repeat(scale, 4, axis=axis)
+    scale = scale[tuple(slice(0, s) for s in shape)]
+    x = x * scale
+    corner = tuple(slice(0, None, 4) for _ in shape)
+    x[corner] = np.sign(x[corner] + 0.5) * scale[corner]
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_dequantize_matches_plain_version(cuda_device, shape):
+    """K3/K4: exact against float32(k) * 2eb, through ops.lorenzo_decode."""
+    x = _field(shape, 5)
+    eb = 1e-3 * float(x.max() - x.min())
+    name = "dequantize2d" if len(shape) == 2 else "dequantize3d"
+    d = ops.lorenzo_encode(torch.from_numpy(x).to(cuda_device), eb)
+    before = lorenzo.LAUNCHES[name]
+    got = ops.lorenzo_decode(d, eb)
+    torch.cuda.synchronize()
+    assert lorenzo.LAUNCHES[name] == before + 1
+    want = ref.lorenzo_decode_ref(d, eb)
+    assert got.dtype == torch.float32 and got.device == d.device
+    assert torch.equal(got, want)
+    k = torch.randint(-(2**30), 2**30, shape, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(getattr(lorenzo, name)(k, eb), ref.dequantize_ref(k, eb))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("transform", ["zfp", "hwt", "dct2"])
+@pytest.mark.parametrize("kind", ["walk", "pow2max"])
+def test_cuda_bot_matches_plain_version(cuda_device, shape, transform, kind):
+    """K5/K6: bits equal and recon within 1e-5 max|x| of the plain version
+    (they take the same float32 steps, so in practice bit for bit)."""
+    x = _field(shape, 6) if kind == "walk" else pow2_max_field(shape, 6)
+    eb = 1e-3 * float(x.max() - x.min())
+    name = "bot2d_fused" if len(shape) == 2 else "bot3d_fused"
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = bot4.LAUNCHES[name]
+    recon, bits = ops.bot_fused(xt, eb, transform)
+    torch.cuda.synchronize()
+    assert bot4.LAUNCHES[name] == before + 1
+    want_r, want_b = ref.bot_fused_ref(xt, eb, transform)
+    assert bits.shape == want_b.shape == tuple(-(-s // 4) for s in shape)
+    assert torch.equal(bits, want_b)
+    assert float((recon - want_r).abs().max()) <= 1e-5 * float(np.abs(x).max())
+    assert float((recon.cpu() - torch.from_numpy(x)).abs().max()) <= eb
+
+
+@pytest.mark.parametrize("name,ndim", [("bot2d_fused", 2), ("bot3d_fused", 3),
+                                       ("dequantize2d", 2), ("dequantize3d", 3)])
+def test_cuda_new_wrappers_reject_bad_inputs(cuda_device, name, ndim):
+    kernel = getattr(bot4, name, None) or getattr(lorenzo, name)
+    dtype = torch.float32 if name.startswith("bot") else torch.int32
+    good = torch.zeros((8,) * ndim, dtype=dtype, device=cuda_device)
+    with pytest.raises(TypeError):
+        kernel(good.double(), 0.1)  # wrong dtype
+    with pytest.raises(ValueError):
+        kernel(good.transpose(0, 1), 0.1)  # not contiguous
+    with pytest.raises(ValueError):
+        kernel(torch.zeros((8,) * (ndim + 1), dtype=dtype, device=cuda_device), 0.1)
+
+
+def _kv_stack(shape, seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal(shape), axis=-2) * np.exp(rng.standard_normal(shape[-1]))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 256), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fixed_ratio", "fixed_accuracy", "raw", "device_encode"])
+def test_cuda_compress_page_equals_cpu(cuda_device, shape, dtype, mode):
+    """compress_page / decompress_page on the card give the CPU port's
+    codec, bound, byte count and payload; the restore honours eb."""
+    page = _kv_stack(shape, 7, dtype)
+    pol = {"fixed_ratio": Policy.fixed_ratio(8.0), "device_encode": Policy.fixed_ratio(8.0),
+           "fixed_accuracy": Policy.fixed_accuracy(eb_rel=1e-2), "raw": Policy.raw()}[mode]
+    kw = dict(device_encode=mode == "device_encode")
+    on_cpu = kvcomp.compress_page(page, pol, device="cpu", **kw)
+    name = "bot2d_fused" if len(shape) == 2 else "bot3d_fused"
+    before = bot4.LAUNCHES[name]
+    on_card = kvcomp.compress_page(page.to(cuda_device), pol, device=cuda_device, **kw)
+    assert bot4.LAUNCHES[name] == before + (on_card.codec == "bot")
+    for k in ("codec", "shape", "dtype", "nbytes", "eb"):
+        assert getattr(on_card, k) == getattr(on_cpu, k), k
+    back = kvcomp.decompress_page(on_card, device=cuda_device)
+    assert back.device.type == "cuda" and back.dtype == dtype and tuple(back.shape) == shape
+    if on_card.codec in ("raw", "zfp"):
+        assert on_card.payload == on_cpu.payload
+    else:
+        tol = 1e-5 * float(page.float().abs().max())
+        assert float((on_card.payload.float() - on_cpu.payload.float()).abs().max()) <= tol
+    if on_card.codec == "raw":
+        assert torch.equal(back.cpu(), page)
+    else:
+        rel = 2.0**-8 if dtype == torch.bfloat16 else 0.0
+        err = (back.float().cpu() - page.float()).abs()
+        assert bool((err <= on_card.eb + rel * back.float().cpu().abs() + 1e-6).all())
+
+
+def test_cuda_page_cache_replays_on_card(cuda_device):
+    page = _kv_stack((4, 16, 256), 8, torch.bfloat16).to(cuda_device)
+    cache, pol = DecisionCache(), Policy.fixed_ratio(8.0)
+    a = kvcomp.compress_page(page, pol, cache=cache, name="kv/long/0/k0", device=cuda_device)
+    assert cache.events["kv/long/0/k0"] == "miss"
+    b = kvcomp.compress_page(page, pol, cache=cache, name="kv/long/0/k0", device=cuda_device)
+    assert cache.events["kv/long/0/k0"] == "hit"
+    assert (a.eb, a.nbytes) == (b.eb, b.nbytes)
