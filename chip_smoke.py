@@ -14,10 +14,12 @@ phase that goes wrong:
 2. times the kernel build;
 3. parity: each of the six kernels against its plain torch version on the
    card, at its path's shapes and at ragged ones — K1-K4 exact, K5/K6 with
-   equal bits and recon within 1e-5 max|x| (all three transforms, blocks
-   whose maximum is an exact power of two) — with its median time, the
-   plain version's time, the bound and, for K3/K4, the time of the one
-   PyTorch call that computes the same function;
+   equal bits and recon bit for bit (all three transforms, blocks whose
+   maximum is an exact power of two, and the edge fields: maxima above
+   2^127, subnormals, zeros, inf and NaN, clamped steps, m >= 2^24) — with
+   its median time, the plain version's time, the bound, for K3/K4 the
+   time of the one PyTorch call that computes the same function, and for
+   K5/K6 the time on one block (the launch's fixed cost);
 4. the main path: CESM-ATM-like 1800x3600 fields and the first
    Hurricane-like 100x500x500 fields that Algorithm 1 gives to SZ and to
    ZFP (`benchmarks/common.py`) through `compress(...,
@@ -41,10 +43,17 @@ phase that goes wrong:
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --bot-times [--src OTHER_CHECKOUT/src]
+
+only builds the kernels and prints the K5/K6 times of `bot_times` as one
+JSON line, for the `repro_torch` under --src: run it on two checkouts in
+turns (parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -64,6 +73,10 @@ EB_SZ_RTOL = 1e-5
 BR_ATOL = 5e-3
 RAGGED_2D = [(300, 517), (8, 128), (4, 40)]
 RAGGED_3D = [(7, 64, 64), (4, 4, 129)]
+#: the BOT kernels' edge fields: every residue mod 4 on each axis
+EDGE_2D = [(300, 517), (301, 518), (302, 519), (303, 516)]
+EDGE_3D = [(5, 6, 7), (6, 7, 4), (7, 5, 6), (4, 4, 129)]
+EDGE_KINDS = ["big", "tiny", "zero", "inf", "-inf", "nan"]
 K1_SHAPES = [(1800, 3600), (300, 517), (8, 128), (4, 40), (1, 5)]
 K2_SHAPES = [(100, 500, 500), (7, 64, 64), (4, 4, 129)]
 #: phi4-mini-3.8b (src/repro/configs/phi4_mini_3_8b.py): 32 layers, 8 KV
@@ -258,50 +271,115 @@ def phase_parity_dequantize(torch, np, dev, flush, results):
             f"{plain_ms} ms, torch.mul {library_ms} ms, bound {bound_ms} ms by {bound_by})")
 
 
-def phase_parity_bot(torch, np, dev, flush, results):
-    """K5/K6 against their plain versions: bits equal, recon within
-    1e-5 max|x| (the largest difference is printed), at the KV path's
-    shapes and at ragged ones, for zfp, hwt and dct2, on random walks and
-    on blocks whose maximum is an exact power of two; timed at the path's
-    shape on KV-like values at the bound fixed_ratio(8) solves there."""
+def edge_field(np, shape, kind, seed):
+    """A uniform field in which about half the 4-blocks (the first always)
+    hold one edge of the BOT kernels' arithmetic: "big", maxima in
+    (2^127, FLT_MAX] (e = 128; FLT_MAX itself in the first block); "tiny",
+    magnitudes from 1e-30 down into the subnormals (the 1e-30 floor of the
+    block max); "zero", all zeros; "inf", "-inf", "nan", that value first
+    in the block."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, shape)
+    pick = rng.random(tuple(-(-s // 4) for s in shape)) < 0.5
+    pick.flat[0] = True
+    mask = pick
+    for axis in range(len(shape)):
+        mask = np.repeat(mask, 4, axis=axis)
+    mask = mask[tuple(slice(0, s) for s in shape)]
+    if kind == "big":
+        x = np.where(mask, x * (1.99 * 2.0**127), x)
+        x[(0,) * len(shape)] = np.finfo(np.float32).max
+    elif kind == "tiny":
+        x = np.where(mask, x * 10.0 ** rng.uniform(-45.0, -30.0, shape), x)
+    elif kind == "zero":
+        x = np.where(mask, 0.0, x)
+    else:
+        corner = tuple(slice(0, None, 4) for _ in shape)
+        x[corner] = np.where(pick, float(kind), x[corner])
+    return x.astype(np.float32)
+
+
+def edge_ebs(np, x):
+    """Bounds that reach the other edges on an edge field: a usual one; one
+    that makes coefficients m >= 2^24; 1e-25, where raw clamps to 2^-60 on
+    O(1) blocks; 1e-37, where the tiny blocks keep planes and reconstruct
+    into the subnormals; 1e30, where raw overflows to inf on zero and tiny
+    blocks."""
+    fin = x[np.isfinite(x)].astype(np.float64)
+    r = float(fin.max() - fin.min())
+    return [1e-3 * r, 1e-9 * r, 1e-25, 1e-37, 1e30]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (so -0.0 differs from 0.0), any NaN equal to any NaN."""
+    a, b = (torch.where(t.isnan(), float("nan"), t).view(torch.int32) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def bot_path_case(torch, np, dev, shape):
+    """K5's or K6's input on the KV path: KV-like values at its path shape
+    on the card, the bound fixed_ratio(8) solves there, and the first
+    4-block alone."""
     from repro_torch.core.policy import Policy
-    from repro_torch.kernels import bot4, ref
     from repro_torch.runtime import kvcomp
 
-    for name, shapes in (("bot2d_fused", [K5_PATH_SHAPE] + RAGGED_2D),
-                         ("bot3d_fused", [K6_PATH_SHAPE] + RAGGED_3D)):
+    page = torch.from_numpy(kv_values(np, shape, 60)).to(dev)
+    eb = kvcomp._policy_eb(page, kvcomp._value_range(page), Policy.fixed_ratio(KV_RATIO))
+    return page, eb, page[tuple(slice(0, 4) for _ in shape)].contiguous()
+
+
+def phase_parity_bot(torch, np, dev, flush, results):
+    """K5/K6 against their plain versions: bits equal and recon bit for bit
+    (the largest difference is printed), at the KV path's shapes and at
+    ragged ones, for zfp, hwt and dct2, on random walks and on blocks whose
+    maximum is an exact power of two; and on the edge fields at every
+    residue mod 4 of each axis under the edge bounds. Timed at the path's
+    shape on KV-like values at the bound fixed_ratio(8) solves there, and
+    on one block (the launch's fixed cost)."""
+    from repro_torch.kernels import bot4, ref
+
+    for name, shapes, edge_shapes in (
+        ("bot2d_fused", [K5_PATH_SHAPE] + RAGGED_2D, EDGE_2D),
+        ("bot3d_fused", [K6_PATH_SHAPE] + RAGGED_3D, EDGE_3D),
+    ):
         kernel = getattr(bot4, name)
-        worst = worst_rel = 0.0
+        cases = []
         for i, shape in enumerate(shapes):
-            for kind in ("walk", "pow2max"):
-                if kind == "walk":
-                    rng = np.random.default_rng(40 + i)
-                    x = np.cumsum(rng.standard_normal(shape), axis=-1).astype(np.float32)
-                else:
-                    x = pow2_max_field(np, shape, 50 + i)
-                xt = torch.from_numpy(x).to(dev)
-                eb = 1e-3 * float(x.max() - x.min())
+            rng = np.random.default_rng(40 + i)
+            walk = np.cumsum(rng.standard_normal(shape), axis=-1).astype(np.float32)
+            for x in (walk, pow2_max_field(np, shape, 50 + i)):
+                cases.append((f"{shape} {'walk' if x is walk else 'pow2max'}", x,
+                              [1e-3 * float(x.max() - x.min())]))
+        for i, shape in enumerate(edge_shapes):
+            for kind in EDGE_KINDS:
+                x = edge_field(np, shape, kind, 80 + i)
+                cases.append((f"{shape} {kind}", x, edge_ebs(np, x)))
+        worst = 0.0
+        for label, x, ebs in cases:
+            xt = torch.from_numpy(x).to(dev)
+            for eb in ebs:
                 for transform in ("zfp", "hwt", "dct2"):
                     recon, bits = kernel(xt, eb, transform)
                     want_r, want_b = ref.bot_fused_ref(xt, eb, transform)
                     torch.cuda.synchronize()
-                    check(torch.equal(bits, want_b),
-                          f"{name} bits differ from the plain version at {shape} {kind} {transform}")
-                    err = float((recon - want_r).abs().max())
-                    tol = 1e-5 * float(np.abs(x).max())
-                    check(err <= tol, f"{name} recon off by {err} > {tol} at {shape} {kind} {transform}")
-                    worst = max(worst, err)
-                    worst_rel = max(worst_rel, err / float(np.abs(x).max()))
-        path = torch.from_numpy(kv_values(np, shapes[0], 60)).to(dev)
-        eb = kvcomp._policy_eb(path, kvcomp._value_range(path), Policy.fixed_ratio(KV_RATIO))
-        ms = time_ms(torch, lambda: kernel(path, eb), flush)
-        plain_ms = time_ms(torch, lambda: ref.bot_fused_ref(path, eb), flush)
+                    where = f"{label} eb={eb} {transform}"
+                    check(torch.equal(bits, want_b), f"{name} bits differ from the plain version at {where}")
+                    check(same_bits(torch, recon, want_r),
+                          f"{name} recon differs from the plain version at {where}")
+                    both = torch.isfinite(recon) & torch.isfinite(want_r)
+                    worst = max(worst, float(torch.where(both, recon - want_r, 0.0).abs().max()))
+        page, eb, block = bot_path_case(torch, np, dev, shapes[0])
+        ms = time_ms(torch, lambda: kernel(page, eb), flush)
+        plain_ms = time_ms(torch, lambda: ref.bot_fused_ref(page, eb), flush)
+        block_ms = time_ms(torch, lambda: kernel(block, eb), flush)
         bound_ms, bound_by = bound(name, shapes[0])
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
-        log("parity", f"{name}: bits equal at {shapes} (walk and power-of-two-max blocks; "
-            f"zfp, hwt, dct2); largest recon difference {worst} ({worst_rel} of max|x|); "
-            f"{list(shapes[0])}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by})")
+        log("parity", f"{name}: bits equal and recon bit for bit on {len(cases)} fields "
+            f"(walks and power-of-two-max blocks at {shapes}; {EDGE_KINDS} blocks at "
+            f"{edge_shapes}; zfp, hwt, dct2); largest recon difference {worst}; "
+            f"{list(shapes[0])}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by "
+            f"{bound_by}); one block {list(block.shape)}: {block_ms} ms")
 
 
 def phase_main(torch, np, dev):
@@ -627,14 +705,48 @@ def phase_kv(torch, np, dev):
     return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
 
 
+def bot_times(torch, np, dev) -> dict:
+    """Device ms of K5 and K6 at the KV path's shapes and on one block, and
+    the host ms of one K6 call through `ops.bot_fused` ending in a
+    synchronize (the evict's "K6 + sync" step; median of 200), for the
+    `repro_torch` on sys.path; and, as the floor of any launch, the device ms
+    of PyTorch's fill of one value."""
+    from repro_torch.kernels import bot4, ops
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {}
+    for name, shape in (("bot2d_fused", K5_PATH_SHAPE), ("bot3d_fused", K6_PATH_SHAPE)):
+        kernel = getattr(bot4, name)
+        page, eb, block = bot_path_case(torch, np, dev, shape)
+        out[f"{name}_ms"] = time_ms(torch, lambda: kernel(page, eb), flush)
+        out[f"{name}_block_ms"] = time_ms(torch, lambda: kernel(block, eb), flush)
+    host = []  # the last page is K6's
+    for _ in range(200):
+        t = time.perf_counter()
+        ops.bot_fused(page, eb)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    out["bot3d_fused_call_sync_host_ms"] = statistics.median(host)
+    tiny = torch.empty(1, device=dev)
+    out["one_value_fill_ms"] = time_ms(torch, tiny.zero_, flush)  # any launch's floor
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--bot-times", action="store_true",
+                        help="only build the kernels and print K5/K6 times (bot_times) as JSON")
+    parser.add_argument("--src", type=Path, default=ROOT / "src",
+                        help="directory to import repro_torch from (another checkout's src/, "
+                        "to time two commits in one run)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this smoke runs only on the GPU",
               file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    sys.path[:0] = [str(args.src.resolve()), str(ROOT)]
     import numpy as np
 
     from repro_torch.kernels import _build
@@ -652,6 +764,10 @@ def main() -> int:
     for name in libs:
         _build.load(name)
     log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    if args.bot_times:
+        print(json.dumps({"src": str(args.src), **bot_times(torch, np, dev)}), flush=True)
+        print(card, flush=True)
+        return 0
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB > L2
     parity = phase_parity(torch, np, dev, flush)

@@ -19,6 +19,7 @@ tensor — the caller asked for the CPU — runs the plain torch version in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +38,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+@functools.cache
+def _constants(transform: str, nd: int) -> tuple[ctypes.Array, ctypes.c_float]:
+    """The kernel's constant arguments for (transform, rank): T(t) as 16
+    float32 values, row-major, and bot_linf_gain(t)^nd rounded to float32."""
+    T = (ctypes.c_float * 16)(*np.asarray(bot_matrix(transform), np.float32).reshape(-1))
+    return T, ctypes.c_float(float(np.float32(bot_linf_gain(transform) ** nd)))
+
+
 def _launch(name: str, x: torch.Tensor, eb, transform: str):
     nd = x.ndim
     recon = torch.empty_like(x)
@@ -45,8 +54,7 @@ def _launch(name: str, x: torch.Tensor, eb, transform: str):
     if x.numel() == 0:
         return recon, bits
     eb_dev = torch.as_tensor(eb, dtype=torch.float32, device=x.device).reshape(1)
-    T = (ctypes.c_float * 16)(*np.asarray(bot_matrix(transform), np.float32).reshape(-1))
-    gain = ctypes.c_float(float(np.float32(bot_linf_gain(transform) ** nd)))
+    T, gain = _constants(transform, nd)
     fn = getattr(_build.load("bot4"), name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

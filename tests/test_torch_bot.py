@@ -30,6 +30,8 @@ import pytest
 import torch
 
 from repro.core import zfp as r_zfp
+from repro.core.transforms import bot_linf_gain as r_bot_linf_gain
+from repro.core.transforms import bot_matrix as r_bot_matrix
 from repro.kernels import lorenzo as r_lorenzo
 from repro.kernels import ops as r_ops
 from repro_torch.core import zfp as p_zfp
@@ -181,6 +183,19 @@ def test_pow2_is_exact_everywhere():
     with np.errstate(over="ignore"):
         want = np.ldexp(np.float32(1), k).astype(np.float32)  # 0 / inf at the ends
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("transform", TRANSFORMS)
+@pytest.mark.parametrize("nd", [2, 3])
+def test_kernel_constants_are_cached_per_transform_and_rank(transform, nd):
+    """The BOT wrappers' constant kernel arguments, built once per
+    (transform, rank): T(t) and gain^nd rounded to float32 as the
+    reference rounds them."""
+    T, gain = bot4._constants(transform, nd)
+    assert bot4._constants(transform, nd)[0] is T
+    np.testing.assert_array_equal(np.ctypeslib.as_array(T),
+                                  np.float32(r_bot_matrix(transform)).reshape(-1))
+    assert gain.value == np.float32(r_bot_linf_gain(transform) ** nd)
 
 
 @pytest.mark.parametrize("name,ndim,dtype", [

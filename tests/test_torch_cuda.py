@@ -141,8 +141,8 @@ def test_cuda_dequantize_matches_plain_version(cuda_device, shape):
 @pytest.mark.parametrize("transform", ["zfp", "hwt", "dct2"])
 @pytest.mark.parametrize("kind", ["walk", "pow2max"])
 def test_cuda_bot_matches_plain_version(cuda_device, shape, transform, kind):
-    """K5/K6: bits equal and recon within 1e-5 max|x| of the plain version
-    (they take the same float32 steps, so in practice bit for bit)."""
+    """K5/K6: bits equal and recon bit for bit to the plain version (they
+    take the same float32 steps in the same order)."""
     x = _field(shape, 6) if kind == "walk" else pow2_max_field(shape, 6)
     eb = 1e-3 * float(x.max() - x.min())
     name = "bot2d_fused" if len(shape) == 2 else "bot3d_fused"
@@ -154,8 +154,70 @@ def test_cuda_bot_matches_plain_version(cuda_device, shape, transform, kind):
     want_r, want_b = ref.bot_fused_ref(xt, eb, transform)
     assert bits.shape == want_b.shape == tuple(-(-s // 4) for s in shape)
     assert torch.equal(bits, want_b)
-    assert float((recon - want_r).abs().max()) <= 1e-5 * float(np.abs(x).max())
+    assert _same_bits(recon, want_r)
     assert float((recon.cpu() - torch.from_numpy(x)).abs().max()) <= eb
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (so -0.0 differs from 0.0), any NaN equal to any NaN."""
+    a, b = (torch.where(t.isnan(), float("nan"), t).view(torch.int32) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def edge_field(shape, kind, seed):
+    """A uniform field in which about half the 4-blocks (the first always)
+    hold one edge of the BOT kernels' arithmetic: "big", maxima in
+    (2^127, FLT_MAX] (e = 128; FLT_MAX itself in the first block); "tiny",
+    magnitudes from 1e-30 down into the subnormals (the 1e-30 floor of the
+    block max); "zero", all zeros; "inf", "-inf", "nan", that value first
+    in the block."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, shape)
+    pick = rng.random(tuple(-(-s // 4) for s in shape)) < 0.5
+    pick.flat[0] = True
+    mask = pick
+    for axis in range(len(shape)):
+        mask = np.repeat(mask, 4, axis=axis)
+    mask = mask[tuple(slice(0, s) for s in shape)]
+    if kind == "big":
+        x = np.where(mask, x * (1.99 * 2.0**127), x)
+        x[(0,) * len(shape)] = np.finfo(np.float32).max
+    elif kind == "tiny":
+        x = np.where(mask, x * 10.0 ** rng.uniform(-45.0, -30.0, shape), x)
+    elif kind == "zero":
+        x = np.where(mask, 0.0, x)
+    else:
+        corner = tuple(slice(0, None, 4) for _ in shape)
+        x[corner] = np.where(pick, float(kind), x[corner])
+    return x.astype(np.float32)
+
+
+# every residue mod 4 on each axis, for K5 and for K6
+EDGE_SHAPES = [(300, 517), (301, 518), (302, 519), (303, 516),
+               (5, 6, 7), (6, 7, 4), (7, 5, 6), (4, 4, 129)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("kind", ["big", "tiny", "zero", "inf", "-inf", "nan"])
+def test_cuda_bot_edges_match_plain_version(cuda_device, shape, kind):
+    """K5/K6 at the edges of their exact power-of-two arithmetic: bits equal
+    and recon bit for bit to the plain version, for zfp, hwt and dct2, under
+    a usual bound, one that makes coefficients m >= 2^24, 1e-25 (raw clamps
+    to 2^-60 on O(1) blocks), 1e-37 (tiny blocks reconstruct into the
+    subnormals) and 1e30 (raw overflows to inf on zero and tiny blocks)."""
+    x = edge_field(shape, kind, 9)
+    fin = x[np.isfinite(x)].astype(np.float64)
+    r = float(fin.max() - fin.min())
+    name = "bot2d_fused" if len(shape) == 2 else "bot3d_fused"
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = bot4.LAUNCHES[name]
+    for transform in ("zfp", "hwt", "dct2"):
+        for eb in (1e-3 * r, 1e-9 * r, 1e-25, 1e-37, 1e30):
+            recon, bits = ops.bot_fused(xt, eb, transform)
+            want_r, want_b = ref.bot_fused_ref(xt, eb, transform)
+            assert torch.equal(bits, want_b), (transform, eb)
+            assert _same_bits(recon, want_r), (transform, eb)
+    assert bot4.LAUNCHES[name] == before + 15
 
 
 @pytest.mark.parametrize("name,ndim", [("bot2d_fused", 2), ("bot3d_fused", 3),
