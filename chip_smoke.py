@@ -13,7 +13,10 @@ phase that goes wrong:
    the TF32 switches;
 2. times the kernel build;
 3. parity: each of the six kernels against its plain torch version on the
-   card, at its path's shapes and at ragged ones — K1-K4 exact, K5/K6 with
+   card, at its path's shapes and at ragged ones — K1-K4 exact (K1/K2 also
+   at every width residue mod 4 on either side of a 128-column strip, at
+   heights and depths on either side of their runs, from an unaligned
+   base, and on codes beyond 2^24 and beyond int32, +-inf and NaN), K5/K6 with
    equal bits and recon bit for bit (all three transforms, blocks whose
    maximum is an exact power of two, and the edge fields: maxima above
    2^127, subnormals, zeros, inf and NaN, clamped steps, m >= 2^24) — with
@@ -49,6 +52,10 @@ it exits non-zero before printing any result.
 only builds the kernels and prints the K5/K6 times of `bot_times` as one
 JSON line, for the `repro_torch` under --src: run it on two checkouts in
 turns (parent, change, change, parent) to compare them on one card.
+
+    python3 chip_smoke.py --lorenzo-times [--src OTHER_CHECKOUT/src]
+
+does the same for K1/K2 (`lorenzo_times`).
 """
 
 from __future__ import annotations
@@ -79,6 +86,14 @@ EDGE_3D = [(5, 6, 7), (6, 7, 4), (7, 5, 6), (4, 4, 129)]
 EDGE_KINDS = ["big", "tiny", "zero", "inf", "-inf", "nan"]
 K1_SHAPES = [(1800, 3600), (300, 517), (8, 128), (4, 40), (1, 5)]
 K2_SHAPES = [(100, 500, 500), (7, 64, 64), (4, 4, 129)]
+#: K1/K2 edge cases: every width residue mod 4 on either side of a lane
+#: strip of 128 columns, and a wide row of 4097; the values of each kind
+#: (`encode_field`), each also from an unaligned base
+ENCODE_WIDTHS = (127, 128, 129, 130, 131)
+ENCODE_KINDS = ("beyond_2p24", "beyond_int32", "non_finite")
+#: --lorenzo-times: the path shapes and one small shape (one run of one
+#: strip)
+K1_SMALL, K2_SMALL = (32, 128), (25, 4, 128)
 #: phi4-mini-3.8b (src/repro/configs/phi4_mini_3_8b.py): 32 layers, 8 KV
 #: heads, head dim 3072/24 = 128; the batcher's default page of 16 tokens
 N_LAYERS, N_KV_HEADS, HEAD_DIM, PAGE_TOKENS = 32, 8, 128, 16
@@ -180,22 +195,83 @@ def tie_field(np, shape, seed):
     return x, float(eb)
 
 
+def encode_field(np, shape, kind, seed):
+    """(x, eb) for K1/K2: "ties", `tie_field`; "beyond_2p24" and
+    "beyond_int32", N(0, 3e7) and N(0, 1e9) values at eb 0.5, whose codes
+    and differences pass 2^24 (the float32 difference rounds) and the int32
+    range (the cast saturates); "non_finite", `tie_field` with +inf, -inf
+    and NaN on the first and last rows, columns and planes and inside."""
+    rng = np.random.default_rng(seed)
+    if kind in ("beyond_2p24", "beyond_int32"):
+        sigma = 3e7 if kind == "beyond_2p24" else 1e9
+        return rng.normal(0.0, sigma, shape).astype(np.float32), 0.5
+    x, eb = tie_field(np, shape, seed)
+    if kind == "non_finite":
+        spots = [tuple(0 for _ in shape), tuple(s - 1 for s in shape)]
+        spots += [tuple(int(rng.integers(0, s)) if a != axis else edge
+                        for a, s in enumerate(shape))
+                  for axis in range(len(shape)) for edge in (0, shape[axis] - 1)]
+        spots += [tuple(int(rng.integers(0, s)) for s in shape) for _ in range(4)]
+        for i, spot in enumerate(spots):
+            x[spot] = (np.inf, -np.inf, np.nan)[i % 3]
+    return x, eb
+
+
+def lorenzo_runs() -> dict:
+    """The run and strip sizes of the `repro_torch` in use
+    (`csrc/lorenzo.cu`), whose edges the parity cases straddle."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = _build.SOURCES["lorenzo"].read_text()
+    found = {k: re.search(rf"constexpr int {k} = (\d+);", src) for k in ("kRun2D", "kRows3D", "kRun3D")}
+    return {k: int(m.group(1)) for k, m in found.items() if m}
+
+
+def encode_edge_shapes(ndim: int) -> list:
+    runs = lorenzo_runs()
+    if ndim == 2:
+        r = runs["kRun2D"]
+        return [(5, w) for w in ENCODE_WIDTHS] + [(3, 4097)] + [(h, 132) for h in (r - 1, r, r + 1)]
+    z, h = runs["kRun3D"], runs["kRows3D"]
+    return ([(3, 5, w) for w in ENCODE_WIDTHS] + [(2, 3, 4097)]
+            + [(d, 5, 128) for d in (z - 1, z, z + 1)] + [(3, y, 132) for y in (h - 1, h, h + 1)])
+
+
+def on_card(torch, x, dev, unaligned: bool):
+    """x on the card, contiguous; with `unaligned`, at a 4-byte offset into
+    its buffer (not 16-byte aligned)."""
+    t = torch.from_numpy(x).to(dev)
+    if not unaligned:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_parity(torch, np, dev, flush):
     from repro_torch.kernels import lorenzo, ref
 
     results = {}
     for name, shapes in (("lorenzo2d_encode", K1_SHAPES), ("lorenzo3d_encode", K2_SHAPES)):
         kernel = getattr(lorenzo, name)
+        cases = [(shape, "ties") for shape in shapes]
+        cases += [(shape, kind) for shape in encode_edge_shapes(len(shapes[0]))
+                  for kind in ("ties",) + ENCODE_KINDS]
         worst = 0
-        for i, shape in enumerate(shapes):
-            x, eb = tie_field(np, shape, 10 + i)
-            xt = torch.from_numpy(x).to(dev)
-            got = kernel(xt, eb)
-            want = ref.lorenzo_encode_ref(xt, eb)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            check(err == 0, f"{name} differs from its plain version at {shape}: {err}")
-            worst = max(worst, err)
+        for i, (shape, kind) in enumerate(cases):
+            x, eb = encode_field(np, shape, kind, 10 + i)
+            for unaligned in (False, True):
+                xt = on_card(torch, x, dev, unaligned)
+                got = kernel(xt, eb)
+                want = ref.lorenzo_encode_ref(xt, eb)
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                check(err == 0, f"{name} differs from its plain version at {shape} {kind}"
+                      f"{' unaligned' if unaligned else ''}: {err}")
+                worst = max(worst, err)
         x, eb = tie_field(np, shapes[0], 99)
         xt = torch.from_numpy(x).to(dev)
         # the plain version gets the bound as a tensor already on the card,
@@ -206,7 +282,9 @@ def phase_parity(torch, np, dev, flush):
         bound_ms, bound_by = bound(name, tuple(xt.shape))
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        log("parity", f"{name}: exact at {shapes}; {list(shapes[0])}: {ms} ms "
+        log("parity", f"{name}: exact on {len(cases)} fields, each aligned and unaligned "
+            f"(ties at {shapes}; {('ties',) + ENCODE_KINDS} at "
+            f"{encode_edge_shapes(len(shapes[0]))}); {list(shapes[0])}: {ms} ms "
             f"(plain {plain_ms} ms, bound {bound_ms} ms by {bound_by})")
     return results
 
@@ -732,10 +810,35 @@ def bot_times(torch, np, dev) -> dict:
     return out
 
 
+def lorenzo_times(torch, np, dev) -> dict:
+    """Device ms of K1 and K2 at the main path's shapes and at one small
+    shape, each after a check that the kernel equals its plain version
+    there, for the `repro_torch` on sys.path; and the device ms of
+    PyTorch's fill of one value, the floor of any launch."""
+    from repro_torch.kernels import lorenzo, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    out = {**lorenzo_runs()}
+    for name, shapes in (("lorenzo2d_encode", (K1_SHAPES[0], K1_SMALL)),
+                         ("lorenzo3d_encode", (K2_SHAPES[0], K2_SMALL))):
+        kernel = getattr(lorenzo, name)
+        for suffix, shape in zip(("", "_small"), shapes):
+            x, eb = tie_field(np, shape, 99)
+            xt = torch.from_numpy(x).to(dev)
+            check(torch.equal(kernel(xt, eb), ref.lorenzo_encode_ref(xt, eb)),
+                  f"{name} differs from its plain version at {shape}")
+            out[f"{name}{suffix}_ms"] = time_ms(torch, lambda: kernel(xt, eb), flush)
+    tiny = torch.empty(1, device=dev)
+    out["one_value_fill_ms"] = time_ms(torch, tiny.zero_, flush)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bot-times", action="store_true",
                         help="only build the kernels and print K5/K6 times (bot_times) as JSON")
+    parser.add_argument("--lorenzo-times", action="store_true",
+                        help="only build the kernels and print K1/K2 times (lorenzo_times) as JSON")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory to import repro_torch from (another checkout's src/, "
                         "to time two commits in one run)")
@@ -760,14 +863,15 @@ def main() -> int:
         f"matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    libs = _build.build(verbose=True)
+    libs = _build.build(["lorenzo"] if args.lorenzo_times else None, verbose=True)
     for name in libs:
         _build.load(name)
     log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
-    if args.bot_times:
-        print(json.dumps({"src": str(args.src), **bot_times(torch, np, dev)}), flush=True)
-        print(card, flush=True)
-        return 0
+    for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times)):
+        if wanted:
+            print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
+            print(card, flush=True)
+            return 0
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB > L2
     parity = phase_parity(torch, np, dev, flush)

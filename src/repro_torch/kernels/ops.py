@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.transforms import lorenzo_forward, lorenzo_inverse
+from ..core.transforms import lorenzo_inverse
 from ..core.zfp import zfp_stats
 from . import bot4, lorenzo
+from .ref import lorenzo_encode_ref, to_int32_saturating
 
 
 def pallas_rank(shape: tuple[int, ...]) -> int | None:
@@ -36,20 +37,19 @@ def lorenzo_encode(x: torch.Tensor, eb: float) -> torch.Tensor:
         return lorenzo.lorenzo2d_encode(x, eb)
     if rank == 3:
         return lorenzo.lorenzo3d_encode(x, eb)
-    delta = 2.0 * torch.as_tensor(eb, dtype=torch.float32, device=x.device)
-    return lorenzo_forward(torch.round(x / delta)).to(torch.int32)
+    return lorenzo_encode_ref(x, eb)
 
 
 def lorenzo_decode(d: torch.Tensor, eb: float) -> torch.Tensor:
     """Inverse Lorenzo (n-D prefix sum, float32) + dequantize -> float32
-    reconstruction. The prefix sum is cast to int32 before K3/K4, as the
-    reference casts it."""
+    reconstruction. The prefix sum is cast to int32 before K3/K4, saturating
+    as the reference's cast does."""
     k = lorenzo_inverse(d.to(torch.float32))
     rank = pallas_rank(tuple(d.shape))
     if rank == 2:
-        return lorenzo.dequantize2d(k.to(torch.int32).contiguous(), eb)
+        return lorenzo.dequantize2d(to_int32_saturating(k).contiguous(), eb)
     if rank == 3:
-        return lorenzo.dequantize3d(k.to(torch.int32).contiguous(), eb)
+        return lorenzo.dequantize3d(to_int32_saturating(k).contiguous(), eb)
     return k * (2.0 * torch.as_tensor(eb, dtype=torch.float32, device=d.device))
 
 

@@ -24,6 +24,7 @@ from ..core.transforms import (
 
 #: header bits per block (`core.embedded.BLOCK_HEADER_BITS`)
 BLOCK_HEADER_BITS = 24.0
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 def _delta(eb, device: torch.device) -> torch.Tensor:
@@ -31,11 +32,28 @@ def _delta(eb, device: torch.device) -> torch.Tensor:
     return 2.0 * torch.as_tensor(eb, dtype=torch.float32, device=device)
 
 
+def to_int32_saturating(v: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA's `astype(int32)` and the card's
+    `cvt.rzi.s32.f32` convert it: truncated toward zero, saturated at the
+    int32 limits (+-inf included), NaN -> 0."""
+    hi, lo = v >= 2.0**31, v < -(2.0**31)
+    out = torch.where(hi | lo | v.isnan(), 0.0, v).to(torch.int32)
+    return out.masked_fill_(hi, INT32_MAX).masked_fill_(lo, INT32_MIN)
+
+
 def lorenzo_encode_ref(x: torch.Tensor, eb) -> torch.Tensor:
     """round(x/2eb) (half to even, float32) then the n-D integer Lorenzo
-    difference -> int32 codes of x's shape."""
+    difference -> int32 codes of x's shape (saturating cast).
+
+    The float32 difference is formed in the TPU kernels' order: in 2-D
+    ``((k - up) - left) + ul`` (`_encode_kernel`), which above 2^24 rounds
+    otherwise than one axis at a time; in other ranks one zero-padded
+    backward difference per axis (`_encode3d_kernel` in 3-D)."""
     k = torch.round(x.to(torch.float32) / _delta(eb, x.device))
-    return lorenzo_forward(k).to(torch.int32)
+    if k.ndim == 2:
+        kp = F.pad(k, (1, 0, 1, 0))  # zeros above and left of the domain
+        return to_int32_saturating(((k - kp[:-1, 1:]) - kp[1:, :-1]) + kp[:-1, :-1])
+    return to_int32_saturating(lorenzo_forward(k))
 
 
 def lorenzo_decode_ref(d: torch.Tensor, eb) -> torch.Tensor:

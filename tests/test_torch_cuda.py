@@ -10,6 +10,8 @@ has only PyTorch (the reference comparisons live in the other
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core import Policy, compress, decompress, encode_with_selection, select
 from repro_torch.core import device_encode as de
 from repro_torch.core.decision_cache import DecisionCache
-from repro_torch.kernels import bot4, lorenzo, ops, ref
+from repro_torch.kernels import _build, bot4, lorenzo, ops, ref
 from repro_torch.runtime import kvcomp
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +67,87 @@ def test_cuda_kernel_half_bin_ties(cuda_device, shape):
     eb = 2.0**-7
     k = np.random.default_rng(1).integers(-1000, 1000, size=shape)
     _launch_and_compare(((k + 0.5) * 2 * eb).astype(np.float32), eb, cuda_device)
+
+
+def _lorenzo_runs():
+    """The run and strip sizes of `csrc/lorenzo.cu` (kRun2D rows per warp
+    in K1; kRows3D rows and kRun3D planes per warp in K2)."""
+    src = _build.SOURCES["lorenzo"].read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kRun2D", "kRows3D", "kRun3D")}
+
+
+def _encode_edge_shapes(ndim):
+    """Every width residue mod 4 on either side of a 128-column lane strip,
+    a wide row, and heights (2-D) or depths and heights (3-D) on either
+    side of the kernels' runs."""
+    runs = _lorenzo_runs()
+    widths = (127, 128, 129, 130, 131)
+    if ndim == 2:
+        r = runs["kRun2D"]
+        return [(5, w) for w in widths] + [(3, 4097)] + [(h, 132) for h in (r - 1, r, r + 1)]
+    z, h = runs["kRun3D"], runs["kRows3D"]
+    return ([(3, 5, w) for w in widths] + [(2, 3, 4097)]
+            + [(d, 5, 128) for d in (z - 1, z, z + 1)] + [(3, y, 132) for y in (h - 1, h, h + 1)])
+
+
+def _edge_values(shape, kind, seed):
+    """(x, eb): codes beyond 2^24 or beyond int32 at eb 0.5, or a walk with
+    +inf, -inf and NaN on the first and last rows and columns and inside."""
+    rng = np.random.default_rng(seed)
+    if kind == "beyond_2p24":
+        return rng.normal(0.0, 3e7, shape).astype(np.float32), 0.5
+    if kind == "beyond_int32":
+        return rng.normal(0.0, 1e9, shape).astype(np.float32), 0.5
+    x = _field(shape, seed)
+    spots = [tuple(0 for _ in shape), tuple(s - 1 for s in shape)]
+    spots += [tuple(int(rng.integers(0, s)) if a != axis else e for a, s in enumerate(shape))
+              for axis in range(len(shape)) for e in (0, shape[axis] - 1)]
+    spots += [tuple(int(rng.integers(0, s)) for s in shape) for _ in range(4)]
+    for i, spot in enumerate(spots):
+        x[spot] = (np.inf, -np.inf, np.nan)[i % 3]
+    finite = x[np.isfinite(x)]
+    return x, 1e-3 * float(finite.max() - finite.min())
+
+
+def _unaligned(xt):
+    """xt's values at a 4-byte offset into a buffer (not 16-byte aligned)."""
+    buf = torch.empty(xt.numel() + 1, dtype=xt.dtype, device=xt.device)
+    view = buf[1:].view(xt.shape)
+    view.copy_(xt)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("kind", ["beyond_2p24", "beyond_int32", "non_finite"])
+def test_cuda_encode_edges_match_plain_version(cuda_device, ndim, kind):
+    """K1/K2 exact against the plain version at their design's edges: the
+    width residues around a lane strip, runs cut short and just over, codes
+    past 2^24 and past int32, +-inf and NaN; aligned and unaligned."""
+    name = _kernel_name(ndim)
+    for i, shape in enumerate(_encode_edge_shapes(ndim)):
+        x, eb = _edge_values(shape, kind, 20 + i)
+        xt = torch.from_numpy(x).to(cuda_device)
+        for t in (xt, _unaligned(xt)):
+            got = getattr(lorenzo, name)(t, eb)
+            want = ref.lorenzo_encode_ref(t, eb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, kind, t.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1800, 3600), (2, 3, 4097)])
+def test_cuda_encode_unaligned_base(cuda_device, shape):
+    """A view at a 4-byte offset takes the scalar body: exact, and launched."""
+    x = _field(shape, 11)
+    eb = 1e-3 * float(x.max() - x.min())
+    xt = _unaligned(torch.from_numpy(x).to(cuda_device))
+    name = _kernel_name(len(shape))
+    before = lorenzo.LAUNCHES[name]
+    got = getattr(lorenzo, name)(xt, eb)
+    torch.cuda.synchronize()
+    assert lorenzo.LAUNCHES[name] == before + 1
+    assert torch.equal(got, ref.lorenzo_encode_ref(xt, eb))
 
 
 @pytest.mark.parametrize("name,ndim", [("lorenzo2d_encode", 2), ("lorenzo3d_encode", 3)])

@@ -132,3 +132,63 @@ def test_cpu_calls_do_not_count_as_launches():
     lorenzo.lorenzo3d_encode(torch.ones(4, 8, 8), 0.1)
     assert lorenzo.LAUNCHES == before
 
+
+#: ranks the kernels do not serve, which take the plain path
+OTHER_RANKS = [(4096,), (2, 3, 8, 32)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + OTHER_RANKS)
+@pytest.mark.parametrize("sigma", [3e7, 1e9])
+def test_lorenzo_encode_beyond_2p24(shape, sigma):
+    """Codes past 2^24 (where the float32 difference rounds, so its order
+    matters) and past int32 (where the cast saturates), at eb 0.5: exact
+    against the reference's kernel path."""
+    x = np.random.default_rng(7).normal(0.0, sigma, shape).astype(np.float32)
+    port = ops.lorenzo_encode(torch.from_numpy(x), 0.5).numpy()
+    want = np.asarray(r_ops.lorenzo_encode(jnp.asarray(x), jnp.float32(0.5)))
+    np.testing.assert_array_equal(port, want)
+    assert int(np.abs(port.astype(np.int64)).max()) > 2**24
+    if len(shape) in (2, 3):
+        direct = _kernel_for(len(shape))(torch.from_numpy(x), 0.5).numpy()
+        np.testing.assert_array_equal(direct, want)
+
+
+def _non_finite_spots(shape):
+    """Spots on the first row and column (in 3-D the first plane, row and
+    column) and inside. None lies on a last row, column or plane: the
+    reference's halo views wrap there (ROADMAP queue C)."""
+    if len(shape) == 2:
+        m, n = shape
+        return [(0, 0), (0, n // 2), (m // 2, 0), (m // 2, n // 3)]
+    z, m, n = shape
+    return [(0, m // 2, n // 2), (z // 2, 0, n // 2), (z // 2, m // 2, 0),
+            (z // 2, m // 2, n // 3)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan])
+def test_lorenzo_encode_non_finite(shape, value):
+    """+-inf and NaN on the domain's first row, first column and inside:
+    the codes around them saturate or go to 0 as the reference's do."""
+    x = _field(shape, 8)
+    for spot in _non_finite_spots(shape):
+        x[spot] = value
+    port, pallas, _ = _three_way(x, 0.01)
+    np.testing.assert_array_equal(port, pallas)
+    direct = _kernel_for(len(shape))(torch.from_numpy(x), 0.01).numpy()
+    np.testing.assert_array_equal(direct, pallas)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lorenzo_decode_prefix_beyond_int32(shape):
+    """A prefix sum that leaves the int32 range saturates before the
+    dequantize, as the reference's cast does. The codes are multiples of
+    2^26, so every float32 partial sum is exact in any order."""
+    rng = np.random.default_rng(9)
+    d = rng.integers(-3, 4, size=shape) * (rng.random(shape) < 0.2) * 2**26
+    d[(0,) * len(shape)] = d[(0,) * (len(shape) - 1) + (1,)] = 2**30  # the sum reaches 2^31
+    d = d.astype(np.int32)
+    got = ops.lorenzo_decode(torch.from_numpy(d), 0.5).numpy()
+    want = np.asarray(r_ops.lorenzo_decode(jnp.asarray(d), jnp.float32(0.5)))
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got).max() == 2.0**31  # some prefix sums saturated
