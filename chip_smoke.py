@@ -460,17 +460,25 @@ def phase_parity_bot(torch, np, dev, flush, results):
             f"{bound_by}); one block {list(block.shape)}: {block_ms} ms")
 
 
-def phase_main(torch, np, dev):
-    from benchmarks.common import atm_suite, hurricane_suite, psnr
+def paper_fields(np):
+    """The paper-sized fields: 4 CESM-ATM-like 1800x3600 and all 13
+    Hurricane-like 100x500x500 (`benchmarks/common.py`), ~1.4 GB float32."""
+    from benchmarks.common import atm_suite, hurricane_suite
+
+    t0 = time.perf_counter()
+    atm = atm_suite(4, size=(1800, 3600))
+    hurricane = hurricane_suite(13, size=(100, 500, 500))
+    log("fields", f"generated {len(atm) + len(hurricane)} in {time.perf_counter() - t0:.1f} s")
+    return atm, hurricane
+
+
+def phase_main(torch, np, dev, atm, hurricane):
+    from benchmarks.common import psnr
     from repro_torch.core import Policy, compress, compression_ratio, decompress, select
     from repro_torch.core import device_encode as de
     from repro_torch.kernels import lorenzo
 
-    t0 = time.perf_counter()
-    fields = dict(atm_suite(4, size=(1800, 3600)))
-    hurricane = hurricane_suite(13, size=(100, 500, 500))
-    log("fields", f"generated {len(fields) + len(hurricane)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    fields = dict(atm)
     # the 3-D fields: the first Hurricane-like field Algorithm 1 gives to
     # SZ and the first it gives to ZFP, so both 3-D device paths run
     picked = {}
@@ -482,7 +490,6 @@ def phase_main(torch, np, dev):
             fields[f"HUR_{name}"] = x
         if len(picked) == 2:
             break
-    del hurricane
     pol = Policy.fixed_accuracy(eb_rel=EB_REL)
     # warm the CUDA context and the code paths before anything is timed
     for shape in ((64, 96), (16, 32, 32)):
@@ -783,6 +790,210 @@ def phase_kv(torch, np, dev):
     return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
 
 
+#: the pytree phase's leaves in the reference's order (`jax.tree_util`)
+PYTREE_NAMES = [
+    "atm/ATM_00", "atm/ATM_01", "atm/ATM_02", "atm/ATM_03", "bf16", "const", "f64",
+    "folded", "frozen", "hur/sz", "hur/zfp", "ids", "lr", "mask", "nan", "step",
+]
+
+
+def phase_select_many(torch, np, dev, atm, hurricane):
+    """`select_many` on the 17 paper-sized fields against the card's
+    per-field `select` of each, to the golden tolerances; a codec may
+    differ only where the two rates lie within 5e-3 bits/value. Times both
+    (host clock, after a warm-up call)."""
+    from repro_torch.core import select, select_many
+
+    fields = {**atm, **{f"HUR_{k}": v for k, v in hurricane.items()}}
+    arrs = list(fields.values())
+    select_many(arrs, eb_rel=EB_REL, device=dev)  # warm-up
+    t0 = time.perf_counter()
+    many = select_many(arrs, eb_rel=EB_REL, device=dev)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    per_field_ms, flips = 0.0, []
+    for (name, x), m in zip(fields.items(), many):
+        t0 = time.perf_counter()
+        s = select(x, eb_rel=EB_REL, device=dev)
+        per_field_ms += (time.perf_counter() - t0) * 1e3
+        if m.codec != s.codec:
+            check(abs(s.br_sz - s.br_zfp) < BR_ATOL and abs(m.br_sz - m.br_zfp) < BR_ATOL,
+                  f"{name}: select_many picks {m.codec}, select {s.codec}")
+            flips.append(name)
+            log("select_many", f"{name}: codec {m.codec} vs {s.codec} at rates "
+                f"sz {m.br_sz} / {s.br_sz}, zfp {m.br_zfp} / {s.br_zfp}")
+        check(abs(m.eb_sz - s.eb_sz) <= EB_SZ_RTOL * s.eb_sz, f"{name}: eb_sz {m.eb_sz} vs {s.eb_sz}")
+        for k in ("br_sz", "br_zfp"):
+            check(abs(getattr(m, k) - getattr(s, k)) <= BR_ATOL,
+                  f"{name}: {k} {getattr(m, k)} vs {getattr(s, k)}")
+    codecs = {c: sum(m.codec == c for m in many) for c in ("sz", "zfp", "raw")}
+    log("select_many", json.dumps(dict(
+        fields=len(arrs), codecs=codecs, codec_flips=flips, select_many_ms=many_ms,
+        per_field_select_ms=per_field_ms, speedup=per_field_ms / many_ms)))
+
+
+def pytree(torch, np, dev, atm, hurricane, rows):
+    """The pytree phase's tree: the main path's six fields, a folded 5-D
+    float32 leaf, float64, bfloat16 (on the card), int, bool, 0-d float,
+    constant, NaN-poisoned and policy-raw leaves."""
+    rng = np.random.default_rng(90)
+    hur = {cf.codec: x for row, x, cf in rows if x.ndim == 3}
+    cube = hurricane["U_2"][:16, :128, :128]
+    nan = atm["ATM_01"][:256, :256].copy()
+    nan[100, 17] = np.nan
+    return {
+        "atm": dict(atm),
+        "hur": {"sz": hur["sz"], "zfp": hur["zfp"]},
+        "folded": cube.reshape(2, 2, 4, 128, 128),
+        "f64": atm["ATM_02"][:512, :512].astype(np.float64),
+        "bf16": torch.from_numpy(atm["ATM_03"][:256, :512].copy()).to(dev, torch.bfloat16),
+        "ids": rng.integers(0, 50_000, (4096,)).astype(np.int32),
+        "mask": rng.integers(0, 2, (128, 128)).astype(bool),
+        "step": np.array(1234, np.int64),
+        "lr": 3e-4,
+        "const": np.full((64, 64), 2.5, np.float32),
+        "nan": nan,
+        "frozen": atm["ATM_00"][:300, :300].copy(),
+    }
+
+
+def phase_pytree(torch, np, dev, atm, hurricane, rows, card):
+    """`compress_pytree(tree, pset, device_encode=True)` on the card with the
+    default workers, then `decompress_pytree`. Returns the K1/K2 launches
+    of the compress."""
+    from repro_torch.core import Policy, PolicySet, compress_pytree, decompress_pytree
+    from repro_torch.core import device_encode as de
+    from repro_torch.core.selector import _fold_ndim
+    from repro_torch.kernels import lorenzo
+
+    tree = pytree(torch, np, dev, atm, hurricane, rows)
+    pset = PolicySet(default=Policy.fixed_accuracy(eb_rel=EB_REL),
+                     rules=[("frozen", Policy.raw())])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lorenzo.reset_launches()
+    de.DECLINES.clear()
+    t0 = time.perf_counter()
+    ct = compress_pytree(tree, pset, device_encode=True, device=dev)
+    torch.cuda.synchronize()
+    compress_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(lorenzo.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(list(ct.fields) == PYTREE_NAMES, f"leaf names {list(ct.fields)}")
+    check(sum(de.DECLINES.values()) == 0, f"device encode declined: {dict(de.DECLINES)}")
+    ranks = {n: len(_fold_ndim(np.empty(cf.shape, np.uint8)).shape) for n, cf in ct.fields.items()}
+    for kname, rank in (("lorenzo2d_encode", 2), ("lorenzo3d_encode", 3)):
+        n_sz = sum(cf.codec == "sz" and ranks[n] == rank for n, cf in ct.fields.items())
+        check(n_sz >= 1, f"no {rank}-D SZ leaf in the tree")
+        check(launches[kname] == n_sz, f"{kname}: {launches[kname]} launches for {n_sz} leaves")
+    want_raw = {"bf16", "const", "frozen", "ids", "lr", "mask", "nan", "step"}
+    check({n for n, cf in ct.fields.items() if cf.codec == "raw"} == want_raw,
+          f"raw leaves {ct.selection_bits}")
+    check(ct.fields["hur/zfp"].codec == "zfp", "the ZFP field was not given to ZFP")
+    t0 = time.perf_counter()
+    out = decompress_pytree(ct, device=dev)
+    torch.cuda.synchronize()
+    decompress_ms = (time.perf_counter() - t0) * 1e3
+    flat = {n: v for n, v in zip(PYTREE_NAMES, _leaves(tree))}
+    back = {n: v for n, v in zip(PYTREE_NAMES, _leaves(out))}
+    for name, x in flat.items():
+        y, cf = back[name], ct.fields[name]
+        xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        check(y.device.type == dev.type and tuple(y.shape) == tuple(xt.shape)
+              and y.dtype == xt.dtype, f"{name}: restored {y.dtype} {tuple(y.shape)} on {y.device}")
+        if cf.codec == "raw" and cf.selection is None:
+            check(torch.equal(_bytes(torch, y), _bytes(torch, xt)), f"{name}: raw leaf not bit for bit")
+        elif cf.codec == "raw":  # degenerate: the float32 view's bits
+            check(torch.equal(_bytes(torch, y.float()), _bytes(torch, xt.float())),
+                  f"{name}: degenerate raw leaf changed")
+        else:
+            err = float((y.cpu().double() - xt.cpu().double()).abs().max())
+            check(err <= cf.selection.eb_abs, f"{name}: max |err| {err} > eb {cf.selection.eb_abs}")
+    serial = compress_pytree(tree, pset, device_encode=True, device=dev, workers=0)
+    check(all(serial.fields[n].data == ct.fields[n].data for n in PYTREE_NAMES),
+          "workers=0 bytes differ from the threaded compress")
+    log("pytree", json.dumps(dict(
+        leaves=len(ct.fields), codecs=ct.selection_bits, ratio=ct.ratio, nbytes=ct.nbytes,
+        raw_nbytes=ct.raw_nbytes, compress_ms=compress_ms, decompress_ms=decompress_ms,
+        peak_gib=peak_gib, k1_launches=launches["lorenzo2d_encode"],
+        k2_launches=launches["lorenzo3d_encode"], card=card)))
+    return launches
+
+
+def _bytes(torch, t):
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _leaves(tree):
+    from repro_torch.core import pytree as pt
+
+    return [leaf for _, leaf in pt.flatten_with_path(tree)[0]]
+
+
+def zfp_peak(torch, np, dev) -> dict:
+    """Peak device memory of `compress(..., device_encode=True)` and of the
+    ZFP device encoder alone on the 100x500x500 HUR_QICE_0 field (the main
+    path's ZFP field), for the `repro_torch` on sys.path."""
+    from benchmarks.common import hurricane_suite
+    from repro_torch.core import Policy, compress, select
+    from repro_torch.core import device_encode as de
+
+    x = torch.from_numpy(hurricane_suite(1, size=(100, 500, 500))["QICE_0"]).to(dev)
+    sel = select(x, eb_rel=EB_REL, device=dev)
+    check(sel.codec == "zfp", f"QICE_0 went to {sel.codec}")
+    out = {"field_gib": x.numel() * 4 / 2**30}
+    for key, fn in (
+        ("compress", lambda: compress(x, Policy.fixed_accuracy(eb_rel=EB_REL),
+                                      device_encode=True, device=dev)),
+        ("zfp_encode_device", lambda: de.zfp_encode_device(x, sel.eb_abs)),
+    ):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        check(got is not None, f"{key} declined")
+    return out
+
+
+def select_profile(torch, np, dev) -> dict:
+    """Where `select_many`'s time goes on the 17 paper-sized fields: the
+    host clock of its gather half (`_build_select_members`) and of its
+    batches (`_run_select_batches`), each ending in a synchronize, and the
+    `torch.profiler` table of one whole call (top ops by device time, then
+    by host time), printed before the JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import codecs, selector
+
+    atm, hurricane = paper_fields(np)
+    arrs = list(atm.values()) + list(hurricane.values())
+    selector.select_many(arrs, eb_rel=EB_REL, device=dev)  # warm-up
+    out = {}
+    for rep in range(2):
+        results = [None] * len(arrs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        groups = selector._build_select_members(
+            arrs, range(len(arrs)), results, None, EB_REL, 0.05, "zfp", codecs.DEFAULT_CODECS, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        selector._run_select_batches(groups, results, 0.05, "zfp", codecs.DEFAULT_CODECS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[f"gather_ms_{rep}"] = (t1 - t0) * 1e3
+        out[f"batches_ms_{rep}"] = (t2 - t1) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        selector.select_many(arrs, eb_rel=EB_REL, device=dev)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    print(avg.table(sort_by="cuda_time_total", row_limit=25), flush=True)
+    print(avg.table(sort_by="cpu_time_total", row_limit=25), flush=True)
+    return out
+
+
 def bot_times(torch, np, dev) -> dict:
     """Device ms of K5 and K6 at the KV path's shapes and on one block, and
     the host ms of one K6 call through `ops.bot_fused` ending in a
@@ -839,6 +1050,12 @@ def main() -> int:
                         help="only build the kernels and print K5/K6 times (bot_times) as JSON")
     parser.add_argument("--lorenzo-times", action="store_true",
                         help="only build the kernels and print K1/K2 times (lorenzo_times) as JSON")
+    parser.add_argument("--zfp-peak", action="store_true",
+                        help="only print the peak device memory of the ZFP device encode "
+                        "on the main path's ZFP field (zfp_peak) as JSON")
+    parser.add_argument("--select-profile", action="store_true",
+                        help="only time and profile select_many on the 17 paper-sized fields "
+                        "(select_profile)")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory to import repro_torch from (another checkout's src/, "
                         "to time two commits in one run)")
@@ -867,7 +1084,8 @@ def main() -> int:
     for name in libs:
         _build.load(name)
     log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
-    for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times)):
+    for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times),
+                          (args.zfp_peak, zfp_peak), (args.select_profile, select_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)
@@ -878,8 +1096,13 @@ def main() -> int:
     phase_parity_dequantize(torch, np, dev, flush, parity)
     phase_parity_bot(torch, np, dev, flush, parity)
     del flush
-    rows, launches = phase_main(torch, np, dev)
+    atm, hurricane = paper_fields(np)
+    rows, launches = phase_main(torch, np, dev, atm, hurricane)
     phase_kernels_at_main(torch, dev, rows, parity)
+    phase_select_many(torch, np, dev, atm, hurricane)
+    for name, n in phase_pytree(torch, np, dev, atm, hurricane, rows, card).items():
+        launches[name] += n
+    del atm, hurricane
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)
     launches.update(phase_kv(torch, np, dev))

@@ -1,8 +1,9 @@
-"""repro_torch.core — Algorithm 1 for one field, the SZ and ZFP byte
-codecs, and the device-resident encode, in PyTorch."""
+"""repro_torch.core — Algorithm 1 for one field and batched over many, the
+SZ and ZFP byte codecs, the device-resident encode, and pytrees, in
+PyTorch."""
 
 from . import codecs
-from .api import compress
+from .api import CompressedTree, compress, compress_pytree, decompress_pytree
 from .policy import Policy, PolicySet
 from .selector import (
     CompressedField,
@@ -11,21 +12,28 @@ from .selector import (
     decompress,
     encode_with_selection,
     select,
+    select_and_compress,
+    select_many,
 )
 from .sz import sz_compress, sz_decompress
 from .zfp import zfp_compress, zfp_decompress
 
 __all__ = [
     "CompressedField",
+    "CompressedTree",
     "Policy",
     "PolicySet",
     "Selection",
     "codecs",
     "compress",
+    "compress_pytree",
     "compression_ratio",
     "decompress",
+    "decompress_pytree",
     "encode_with_selection",
     "select",
+    "select_and_compress",
+    "select_many",
     "sz_compress",
     "sz_decompress",
     "zfp_compress",

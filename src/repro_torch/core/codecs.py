@@ -99,6 +99,10 @@ def is_registered(name: str) -> bool:
     return name in _REGISTRY
 
 
+def lossy_names() -> tuple[str, ...]:
+    return tuple(n for n, c in _REGISTRY.items() if not c.lossless)
+
+
 def supports_device_encode(name: str) -> bool:
     """Whether `name` can finish Stage III on the device."""
     return bool(getattr(get(name), "device_encode", False))

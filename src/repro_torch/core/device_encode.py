@@ -35,12 +35,14 @@ truncated stream, and every decline is counted in `DECLINES` by reason:
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from ..device import to_int_saturating
 from ..kernels import ops, pack
 from . import entropy as _entropy
 from . import sz as _sz
@@ -59,10 +61,13 @@ _MAX_STREAM_BITS = 2**31 - 1
 
 #: device-encode declines by "codec/reason" since the last reset
 DECLINES: Counter = Counter()
+#: exact counts under the threads of `compress_pytree`'s encoders
+_DECLINES_LOCK = threading.Lock()
 
 
 def _decline(reason: str) -> None:
-    DECLINES[reason] += 1
+    with _DECLINES_LOCK:
+        DECLINES[reason] += 1
     return None
 
 
@@ -72,11 +77,6 @@ def _tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return _device.as_f32(x, x.device)
     return _device.as_f32(x, _device.resolve(device))
-
-
-def _bit_length(m: torch.Tensor) -> torch.Tensor:
-    """Exact bit length of non-negative integers below 2^53 (0 for 0)."""
-    return torch.frexp(m.to(torch.float64)).exponent.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +181,9 @@ def _zfp_pass1(x: torch.Tensor, transform: str):
 def _zfp_pass2a(coeffs: torch.Tensor, step: torch.Tensor, nd: int):
     """Plane magnitudes in degree order, and the closed-form `block_bits`
     payload model that sizes the arena: w*maxplane + sum(nsb) + 2*nsig per
-    block (headers live in the e/nsb side arrays). Magnitudes are clamped
-    at the 2^24 guard; callers check `mmax` before using them. `coeffs`
-    is non-empty."""
+    block (headers live in the e/nsb side arrays). The reference's types:
+    magnitudes int32 (clamped at the 2^24 guard, so callers check `mmax`
+    before using them), bit lengths int8. `coeffs` is non-empty."""
     bsz = 4**nd
     w = k_width(bsz)
     nblk = coeffs.shape[0]
@@ -191,78 +191,97 @@ def _zfp_pass2a(coeffs: torch.Tensor, step: torch.Tensor, nd: int):
     c = coeffs.reshape(nblk, bsz)[:, order]
     mf = torch.trunc(c.abs() / step[:, None])
     mmax = torch.amax(mf)
-    m = torch.clamp_max(mf, _ZFP_MAG_LIMIT).to(torch.int64)
+    m = to_int_saturating(torch.clamp_max(mf, _ZFP_MAG_LIMIT))
+    del mf
     neg = c < 0
-    nc = _bit_length(m)  # per-coefficient bit length
+    # exact bit length of m <= 2^24 (0 for 0), from its float32 exponent
+    nc = torch.frexp(m.to(torch.float32)).exponent.to(torch.int8)
     nsb = torch.amax(nc, dim=1)
     model = w * nsb.sum() + nc.sum() + 2 * (m > 0).sum()
     return m, neg, nc, nsb, model, mmax
 
 
+def _excl_cumsum(mask: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix count along the block's coefficients, int8
+    (bsz <= 64)."""
+    m8 = mask.to(torch.int8)
+    return torch.cumsum(m8, dim=1, dtype=torch.int8) - m8
+
+
 def _partvals(mask, bits, rank, cnt):
     """Right-aligned values of a section's lo (ranks < 32) and hi (ranks >=
-    32) 32-bit chunks per block, as masked shift-sums."""
+    32) 32-bit chunks per block, as masked shift-sums in int32: the bits of
+    a chunk are distinct, so the sum never carries, and bit 31 lands in
+    the sign (the packer masks it back to 32 bits). `rank` is int8, `cnt`
+    the section's length per block."""
     cnt = cnt[:, None]
-    expo = torch.clamp(cnt - 1 - rank, 0, 63)
+    expo = torch.clamp(cnt - 1 - rank, 0, 31)
     sh_lo = torch.clamp(torch.where(cnt > 32, 31 - rank, expo), 0, 31)
-    v_lo = torch.where(mask & (rank < 32), bits << sh_lo, 0).sum(dim=1)
-    v_hi = torch.where(mask & (rank >= 32), bits << torch.clamp(expo, 0, 31), 0).sum(dim=1)
+    lo = mask & (rank < 32)
+    v_lo = torch.where(lo, bits << sh_lo, 0).sum(dim=1, dtype=torch.int32)
+    v_hi = torch.where(mask & ~lo, bits << expo, 0).sum(dim=1, dtype=torch.int32)
     cnt = cnt[:, 0]
     return v_lo, torch.clamp_max(cnt, 32), v_hi, torch.clamp_min(cnt - 32, 0)
 
 
-def _excl_cumsum(mask: torch.Tensor) -> torch.Tensor:
-    mi = mask.to(torch.int64)
-    return torch.cumsum(mi, dim=1) - mi
-
-
-def _zfp_plane(m, neg, nc, nsb, p: int, w: int):
+def _zfp_plane(m, neg, nc, nsb, p: int, w: int, rank_ref, rank_hi):
     """(lens, vals) of plane p's emission: per block, in stream order, the
     refinement chunks, then the k fields, then test chunks, then sign
     chunks — `zfp._emit_planes` in closed form over bit lengths.
 
     At plane p a coefficient is already significant iff nc >= p+2 and
-    becomes significant iff nc == p+1 (which is also its tested bit)."""
+    becomes significant iff nc == p+1 (which is also its tested bit). The
+    ranks are exclusive prefix counts of the shared masks nc >= t: the
+    caller passes those of t = p+2 (`rank_ref`, the previous plane's
+    `rank_hi`) and t = p+1 (`rank_hi`)."""
     bsz = m.shape[1]
     act = (p < nsb)[:, None]
     ref = nc >= p + 2
     newly = nc == p + 1
-    rank_ref = _excl_cumsum(ref)
-    rank_sign = _excl_cumsum(newly)
-    rank_rem = torch.arange(bsz, device=m.device)[None, :] - rank_ref
+    rank_sign = rank_hi - rank_ref
+    rank_rem = torch.arange(bsz, dtype=torch.int8, device=m.device)[None, :] - rank_ref
     rem = act & ~ref
     k = torch.amax(torch.where(newly, rank_rem + 1, 0), dim=1)
-    cnt_rem = rem.sum(dim=1)
+    cnt_rem = rem.sum(dim=1, dtype=torch.int32)
     has_rem = act[:, 0] & (cnt_rem > 0)
     test = rem & (rank_rem < k[:, None])
-    rA, rlA, rB, rlB = _partvals(ref, (m >> p) & 1, rank_ref, ref.sum(dim=1))
+    refbit = (m >> p) & 1
+    rA, rlA, rB, rlB = _partvals(ref, refbit, rank_ref, ref.sum(dim=1, dtype=torch.int32))
     tA, tlA, tB, tlB = _partvals(
-        test, newly.to(torch.int64), rank_rem, torch.minimum(k, cnt_rem)
+        test, newly.to(torch.int32), rank_rem, torch.minimum(k.to(torch.int32), cnt_rem)
     )
-    sA, slA, sB, slB = _partvals(newly, neg.to(torch.int64), rank_sign, newly.sum(dim=1))
-    klen = torch.where(has_rem, w, 0)
+    sA, slA, sB, slB = _partvals(
+        newly, neg.to(torch.int32), rank_sign, newly.sum(dim=1, dtype=torch.int32)
+    )
+    klen = torch.where(has_rem, w, 0).to(torch.int32)
 
     def inter(a, b):
         return torch.stack([a, b], dim=1).reshape(-1)
 
     lens = torch.cat([inter(rlA, rlB), klen, inter(tlA, tlB), inter(slA, slB)])
-    vals = torch.cat([inter(rA, rB), k, inter(tA, tB), inter(sA, sB)])
+    vals = torch.cat([inter(rA, rB), k.to(torch.int32), inter(tA, tB), inter(sA, sB)])
     return lens, vals
 
 
 def _zfp_pass2b(m, neg, nc, nsb, *, n_words: int, n_planes: int):
     """The plane-sectioned k-prefix emitter: planes descending, each plane's
-    chunks from `_zfp_plane`, offsets from one exclusive prefix sum, merged
-    into the arena by the scatter packer. Returns (words, total bits)."""
+    chunks from `_zfp_plane` packed into the arena as soon as they exist,
+    at offsets continuing the previous planes' (int32: the caller bounds the
+    stream below 2^31 bits). Returns (words, total bits)."""
+    words = torch.zeros(n_words, dtype=torch.int64, device=m.device)
     if n_planes == 0:
-        return torch.zeros(n_words, dtype=torch.int64, device=m.device), 0
+        return words, 0
     w = k_width(m.shape[1])
-    planes = [_zfp_plane(m, neg, nc, nsb, p, w) for p in range(n_planes - 1, -1, -1)]
-    lens = torch.cat([pl[0] for pl in planes])
-    vals = torch.cat([pl[1] for pl in planes])
-    offs = torch.cumsum(lens, 0) - lens
-    total = int(lens.sum())
-    return pack.pack_codes(vals, lens, offs, n_words), total
+    base = torch.zeros((), dtype=torch.int32, device=m.device)
+    rank_ref = _excl_cumsum(nc >= n_planes + 1)
+    for p in range(n_planes - 1, -1, -1):
+        rank_hi = _excl_cumsum(nc >= p + 1)
+        lens, vals = _zfp_plane(m, neg, nc, nsb, p, w, rank_ref, rank_hi)
+        offs = torch.cumsum(lens, 0, dtype=torch.int32) - lens + base
+        pack.pack_codes(vals, lens, offs, n_words, words=words)
+        base = base + lens.sum(dtype=torch.int32)
+        rank_ref = rank_hi
+    return words, int(base)
 
 
 def _zfp_step(e_np: np.ndarray, eb: float, gain_n: float) -> np.ndarray | None:

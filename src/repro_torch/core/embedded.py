@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_int_saturating
+
 #: header bits per block in the byte format: e_max (int16) + n_planes (uint8)
 BLOCK_HEADER_BITS = 24
 
@@ -26,7 +28,7 @@ def block_exponent(blocks: torch.Tensor) -> torch.Tensor:
     n = blocks.ndim - 1
     mx = torch.amax(blocks.abs(), dim=tuple(range(1, n + 1)))
     mx = torch.clamp_min(mx, 1e-30)
-    return torch.ceil(torch.log2(mx)).to(torch.int32)
+    return to_int_saturating(torch.ceil(torch.log2(mx)))
 
 
 def align_blocks(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

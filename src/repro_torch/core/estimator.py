@@ -1,9 +1,9 @@
 """Online compression-quality estimation (paper §4.3, §5 — Steps 1 & 2),
 in torch.
 
-Port of `repro.core.estimator`: the single-field part and the batched ZFP
-estimate (`field_sums`, `estimate_zfp_many`); `estimate_sz_many` is not
-ported yet. From a small blockwise sample (default r_sp = 5%) of a field:
+Port of `repro.core.estimator`: the single-field estimates and the
+batched ones over packed multi-field block batches (`field_sums`,
+`estimate_zfp_many`, `estimate_sz_many`). From a small blockwise sample (default r_sp = 5%) of a field:
 
 * SZ: PSNR in closed form from the bin size (Eq. (11)); bit-rate from the
   entropy of the sampled integer Lorenzo residuals (Eq. (9)) with the
@@ -25,13 +25,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import to_int_saturating
 from .embedded import (
     BLOCK_HEADER_BITS,
     block_bits,
     exact_coder_bits,
     exact_coder_bits_blocks,
     k_width,
-    plane_step,
     significant_bits,
 )
 from .transforms import block_transform_nd, bot_linf_gain, bot_matrix
@@ -235,6 +235,27 @@ def estimate_sz(
 # ---------------------------------------------------------------------------
 
 
+#: float32 ln 2, the constant the reference's `jnp.exp2` multiplies by
+_LN2_F32 = float(np.float32(LN2))
+
+
+def _exp2(p: torch.Tensor) -> torch.Tensor:
+    """2^p as the reference's compiled estimator evaluates `jnp.exp2`: XLA
+    lowers it to exp(p * ln 2) in float32, which is exact for integer p only
+    in [-12, 12] (2^-13 comes out 8 ulps low). On the CPU this gives the
+    reference's bits at every integer p from -125 to 127. The estimates
+    follow it so that they land where the reference's do: a plane step a
+    few ulps off moves the estimated PSNR by up to ~0.01 dB, across the
+    0.05 dB grid that fixes the SZ bin (`sz_delta_for_psnr`)."""
+    return torch.exp(p.to(torch.float32) * _LN2_F32)
+
+
+def _plane_step(eb, e_max: torch.Tensor, linf_gain_n: float) -> torch.Tensor:
+    """`embedded.plane_step` with the reference estimator's `_exp2`."""
+    raw = eb / (_exp2(e_max) * linf_gain_n)
+    return _exp2(torch.floor(torch.log2(torch.clamp_min(raw, 2.0**-60))))
+
+
 def _ec_point_mask(nd: int) -> np.ndarray:
     """Fixed point pattern inside a 4^nd block (3/9/16 pts for 1/2/3-D)."""
     m = np.zeros((4,) * nd, dtype=bool)
@@ -268,11 +289,11 @@ def estimate_zfp(
     blocks = gather_blocks(x, starts, halo=False).to(torch.float32)
     n_s = blocks.shape[0]
     mx = torch.clamp_min(torch.amax(blocks.reshape(n_s, -1).abs(), dim=1), 1e-30)
-    e = torch.ceil(torch.log2(mx)).to(torch.int32)
-    norm = blocks * torch.exp2(-e.to(torch.float32)).reshape((-1,) + (1,) * nd)
+    e = to_int_saturating(torch.ceil(torch.log2(mx)))
+    norm = blocks * _exp2(-e).reshape((-1,) + (1,) * nd)
     coeffs = block_transform_nd(norm, bot_matrix(transform), nd)
     gain_n = bot_linf_gain(transform) ** nd
-    step = plane_step(_f32(eb, dev), e, gain_n)
+    step = _plane_step(_f32(eb, dev), e, gain_n)
     sel = torch.as_tensor(np.flatnonzero(_ec_point_mask(nd).reshape(-1)), device=dev)
     bsz = 4**nd
     if mode == "exact":
@@ -290,7 +311,7 @@ def estimate_zfp(
     co = coeffs.reshape(n_s, -1)[:, sel]
     m = torch.trunc(co.abs() / s)
     rec = torch.sign(co) * torch.where(m > 0, (m + 0.5) * s, torch.zeros_like(m))
-    scale = torch.exp2(e.to(torch.float32)).reshape(-1, 1)
+    scale = _exp2(e).reshape(-1, 1)
     err = (co - rec) * scale
     mse_sp = torch.mean(torch.square(err))
     vr32 = torch.clamp_min(_f32(vr, dev), 1e-30)
@@ -307,15 +328,47 @@ def estimate_zfp(
 # ---------------------------------------------------------------------------
 
 
+#: block length of the reference's float prefix sums: XLA's CPU compiler
+#: rewrites `jnp.cumsum` into sequential sums over blocks of 16 values, a
+#: prefix sum of the block totals (the same way, recursively), and one add
+#: of each block's carry; `_cumsum_blocked` takes the same steps
+_SCAN_BLOCK = 16
+
+
+def _cumsum_blocked(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along dim 0 in the reference's float order
+    (bit for bit with `jnp.cumsum` on the CPU): elementwise adds only, so
+    the card gives the same bits as the host."""
+    n, rest = x.shape[0], tuple(x.shape[1:])
+    pad = (-n) % _SCAN_BLOCK
+    xp = torch.cat([x, x.new_zeros((pad,) + rest)]).reshape((-1, _SCAN_BLOCK) + rest)
+    cols = [xp[:, 0]]
+    for j in range(1, _SCAN_BLOCK):
+        cols.append(cols[-1] + xp[:, j])
+    loc = torch.stack(cols, dim=1)
+    if loc.shape[0] > 1:
+        inc = _cumsum_blocked(loc[:, -1])
+        carry = torch.cat([torch.zeros_like(inc[:1]), inc[:-1]])
+        loc = loc + carry.reshape((-1, 1) + rest)
+    return loc.reshape((-1,) + rest)[:n]
+
+
 def field_sums(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     """Per-field sums of field-ordered rows: x is (S,) or (S, C) with rows
     [bounds[f], bounds[f+1]) belonging to field f; returns (F,) / (F, C).
 
     The window is a difference of two global prefix sums, taken in `x`'s
     own dtype: integer columns accumulate exactly in int32 (torch would
-    otherwise widen to int64), and float columns should be normalized per
-    field first so the small fields do not cancel away."""
-    cs = torch.cumsum(x, dim=0, dtype=x.dtype)
+    otherwise widen to int64); float columns in the reference's order
+    (`_cumsum_blocked`), and should be normalized per field first so the
+    small fields do not cancel away."""
+    if x.dtype.is_floating_point:
+        cs = _cumsum_blocked(x)
+    else:
+        # columns scanned along their innermost dim: the card's scan along
+        # an outer dim of a tall (S, 3) tensor is a serial walk per column
+        # (~1 s at 16.8M rows on an H100)
+        cs = torch.cumsum(x.movedim(0, -1).contiguous(), dim=-1, dtype=x.dtype).movedim(-1, 0)
     cs = torch.cat([torch.zeros_like(cs[:1]), cs], dim=0)
     bounds = bounds.to(device=x.device, dtype=torch.int64)
     return cs[bounds[1:]] - cs[bounds[:-1]]
@@ -349,11 +402,11 @@ def estimate_zfp_many(
     bounds = bounds.to(device=dev, dtype=torch.int64)
     n_s = blocks.shape[0]
     mx = torch.clamp_min(torch.amax(blocks.reshape(n_s, -1).abs(), dim=1), 1e-30)
-    e = torch.ceil(torch.log2(mx)).to(torch.int32)
-    norm = blocks * torch.exp2(-e.to(torch.float32)).reshape((-1,) + (1,) * nd)
+    e = to_int_saturating(torch.ceil(torch.log2(mx)))
+    norm = blocks * _exp2(-e).reshape((-1,) + (1,) * nd)
     coeffs = block_transform_nd(norm, bot_matrix(transform), nd)
     gain_n = bot_linf_gain(transform) ** nd
-    step = plane_step(eb_f.to(device=dev, dtype=torch.float32)[seg], e, gain_n)
+    step = _plane_step(eb_f.to(device=dev, dtype=torch.float32)[seg], e, gain_n)
     if mode == "exact":
         bits_blk = exact_coder_bits_blocks(coeffs, step)  # integer-valued
     else:
@@ -364,7 +417,7 @@ def estimate_zfp_many(
     co = coeffs.reshape(n_s, -1)[:, sel]
     m = torch.trunc(co.abs() / s)
     rec = torch.sign(co) * torch.where(m > 0, (m + 0.5) * s, torch.zeros_like(m))
-    scale = torch.exp2(e.to(torch.float32)).reshape(-1, 1)
+    scale = _exp2(e).reshape(-1, 1)
     vr32 = torch.clamp_min(vr_f.to(device=dev, dtype=torch.float32), 1e-30)
     err2n_blk = torch.sum(torch.square((co - rec) * scale), dim=1) / torch.square(vr32[seg])
     bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
@@ -374,3 +427,84 @@ def estimate_zfp_many(
     mse_over_vr2 = err2n_f / torch.clamp_min(nblk_f * len(sel), 1.0)
     psnr = -10.0 * torch.log10(torch.clamp_min(mse_over_vr2, 1e-60))
     return Estimate(bitrate=bitrate, psnr=psnr)
+
+
+def estimate_sz_many(
+    halo_blocks: torch.Tensor,
+    seg: torch.Tensor,
+    bounds: torch.Tensor,
+    delta_f: torch.Tensor,
+    vr_f: torch.Tensor,
+    size_f: torch.Tensor,
+    n_pdf: int = PDF_BINS,
+) -> Estimate:
+    """`estimate_sz(mode='integer')` for a packed batch of halo blocks.
+
+    `halo_blocks` is (total_blocks, 5, ..): field-ordered sampled blocks
+    with the leading original-neighbour halo (zero outside the domain);
+    `bounds` is the (n_fields+1,) block boundary array.
+
+    The per-field residual PDFs are never materialized as an
+    (n_fields, n_pdf) histogram: samples are sorted once by the int32 key
+    (field, bin) = seg * (n_pdf + 1) + bin — fields stay contiguous, so the
+    boundaries stay valid — and entropy and the Chao1 table cost come from
+    run lengths (run ends from a reverse cumulative min). Count columns
+    accumulate exactly in int32; the |p log2 p| terms ride a float32 prefix
+    sum, as in the reference (its window moves at the ulp level with the
+    batch's composition and the scan's order).
+    """
+    nd = halo_blocks.ndim - 1
+    dev = halo_blocks.device
+    seg = seg.to(device=dev, dtype=torch.int32)
+    bounds = bounds.to(device=dev, dtype=torch.int32)
+    delta_f = delta_f.to(device=dev, dtype=torch.float32)
+    half = (n_pdf - 1) // 2
+    idx = seg.to(torch.int64)
+    d = torch.round(halo_blocks.to(torch.float32) / delta_f[idx].reshape((-1,) + (1,) * nd))
+    for ax in range(1, nd + 1):
+        n = d.shape[ax]
+        d = d.narrow(ax, 1, n - 1) - d.narrow(ax, 0, n - 1)
+    bsz = 4**nd
+    k_raw = d.reshape(-1)  # (total_blocks * 4^nd,)
+    n_samples = k_raw.shape[0]
+    sbounds = bounds * bsz  # sample-level field boundaries
+    n_samp_f = (sbounds[1:] - sbounds[:-1]).to(torch.float32)
+    # escape fraction from the field-ordered samples (exact int32 counts)
+    esc = (k_raw.abs() > half).to(torch.int32)
+    ofrac = field_sums(esc, sbounds).to(torch.float32) / torch.clamp_min(n_samp_f, 1.0)
+    k = torch.clamp(k_raw, -half, half)
+    # (field, bin) sort: seg is nondecreasing, so only bins reorder within
+    # each field; the bin's cast saturates as XLA's does (NaN -> bin 0)
+    key = torch.repeat_interleave(seg, bsz) * (n_pdf + 1) + to_int_saturating(k + half)
+    key = torch.sort(key).values
+    pos = torch.arange(n_samples, dtype=torch.int32, device=dev)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), key[1:] != key[:-1]])
+    # next run start after each position, via a reverse cumulative min
+    fpos = torch.where(first, pos, n_samples)
+    nxt_incl = torch.flip(torch.cummin(torch.flip(fpos, (0,)), 0).values, (0,))
+    nxt = torch.cat([nxt_incl[1:], torch.full((1,), n_samples, dtype=torch.int32, device=dev)])
+    counts = (nxt - pos).to(torch.float32)  # run length, valid at run starts
+    fid = (key // (n_pdf + 1)).to(torch.int64)
+    p = counts / torch.clamp_min(n_samp_f[fid], 1.0)
+    # per-run PDF mass terms: |p log2 p| <= ~0.53, so the f32 prefix sum
+    # stays accurate
+    plogp = torch.where(first, p * torch.log2(torch.clamp_min(p, 1e-30)), 0.0)
+    firsti = first.to(torch.int32)
+    icols = torch.stack(
+        [
+            firsti,                                        # n_obs
+            firsti * (counts == 1.0).to(torch.int32),      # Chao1 singletons
+            firsti * (counts == 2.0).to(torch.int32),      # Chao1 doubletons
+        ],
+        dim=1,
+    )
+    ent = -field_sums(plogp, sbounds)
+    isums = field_sums(icols, sbounds).to(torch.float32)  # (F, 3)
+    n_obs, f1, f2 = isums[:, 0], isums[:, 1], isums[:, 2]
+    # Miller-Madow plug-in-bias correction, as in `estimate_sz`
+    ent = ent + (n_obs - 1.0) / (2.0 * torch.clamp_min(n_samp_f, 1.0) * LN2)
+    chao1 = n_obs + f1 * torch.clamp_min(f1 - 1.0, 0.0) / (2.0 * (f2 + 1.0))
+    table_bits = TABLE_BITS_PER_SYMBOL * torch.clamp_max(chao1, float(n_pdf))
+    size_f = size_f.to(device=dev, dtype=torch.float32)
+    br = ent + SZ_BITRATE_OFFSET + ofrac * 64.0 + table_bits / torch.clamp_min(size_f, 1.0)
+    return Estimate(bitrate=br, psnr=sz_psnr(delta_f / 2.0, vr_f))

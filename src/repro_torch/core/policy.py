@@ -15,13 +15,16 @@ plus the estimator sampling rate (`r_sp`) and a codec allowlist (`codecs`,
 validated against the registry; `raw` is always available). A `PolicySet`
 maps field names to policies with ordered first-match-wins rules (globs,
 or regexes with an ``re:`` prefix). `spec` / `from_spec` give the
-JSON-safe form the reference records per field.
+JSON-safe form the reference records per field. `group_by_policy` groups a
+tree's leaves for batched selection, and `policy_from_kwargs` maps the
+deprecated keyword spelling onto a `Policy` with a `DeprecationWarning`.
 """
 
 from __future__ import annotations
 
 import math
 import re
+import warnings
 from dataclasses import dataclass, field
 from fnmatch import fnmatchcase
 from typing import Iterable
@@ -43,6 +46,16 @@ MODES = (
     "fixed_ks",
     "raw",
 )
+#: the quality-metric target modes (no legacy keyword spelling)
+METRIC_MODES = ("fixed_ssim", "fixed_correlation", "fixed_ks")
+#: mode -> the Policy field holding its target, for every target mode
+TARGET_FIELD = {
+    "fixed_psnr": "target_psnr",
+    "fixed_ratio": "target_ratio",
+    "fixed_ssim": "target_ssim",
+    "fixed_correlation": "target_correlation",
+    "fixed_ks": "target_ks",
+}
 
 
 @dataclass(frozen=True)
@@ -277,6 +290,17 @@ class PolicySet:
         return self.default
 
 
+def group_by_policy(pol_of: dict[int, Policy]) -> dict[Policy, list[int]]:
+    """Leaf indices grouped by resolved policy: groups in first-appearance
+    order, members in index order. A single-policy tree is one group with
+    every index in order, so its packed decision batches, and therefore its
+    decisions, equal a direct `select_many` over the same fields."""
+    groups: dict[Policy, list[int]] = {}
+    for i in sorted(pol_of):
+        groups.setdefault(pol_of[i], []).append(i)
+    return groups
+
+
 # ---------------------------------------------------------------------------
 # Serving-tier policies
 # ---------------------------------------------------------------------------
@@ -304,3 +328,69 @@ def as_policy_set(policy) -> PolicySet:
     raise TypeError(
         f"expected Policy or PolicySet, got {type(policy).__name__}: {policy!r}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Legacy-kwarg shim
+# ---------------------------------------------------------------------------
+
+
+def policy_from_kwargs(
+    where: str,
+    *,
+    mode: str | None = None,
+    eb_abs: float | None = None,
+    eb_rel: float | None = None,
+    target_psnr: float | None = None,
+    target_ratio: float | None = None,
+    r_sp: float | None = None,
+    default_eb_rel: float | None = None,
+    stacklevel: int = 3,
+) -> Policy:
+    """Map the deprecated keyword spelling onto a `Policy`, with a
+    `DeprecationWarning`. The mapping keeps each call site's old defaults
+    (eb_abs wins over eb_rel; `default_eb_rel` is the bound the old
+    signature defaulted to, None where it raised), so shimmed calls decide
+    and encode as the `Policy` spelling does."""
+    mode = mode or "fixed_accuracy"
+    r_sp = DEFAULT_R_SP if r_sp is None else r_sp
+    if mode == "fixed_accuracy":
+        if eb_abs is None and eb_rel is None:
+            if default_eb_rel is None:
+                raise ValueError("fixed_accuracy needs eb_abs or eb_rel")
+            eb_rel = default_eb_rel
+        pol = Policy.fixed_accuracy(eb_rel=eb_rel, eb_abs=eb_abs, r_sp=r_sp)
+    elif mode == "fixed_psnr":
+        if target_psnr is None:
+            raise ValueError("fixed_psnr needs target_psnr")
+        pol = Policy.fixed_psnr(target_psnr, r_sp=r_sp)
+    elif mode == "fixed_ratio":
+        if target_ratio is None:
+            raise ValueError("fixed_ratio needs target_ratio")
+        pol = Policy.fixed_ratio(target_ratio, r_sp=r_sp)
+    elif mode in METRIC_MODES:
+        raise ValueError(
+            f"mode {mode!r} has no legacy-kwarg spelling; pass "
+            f"policy=Policy.{mode}(target) instead (repro_torch.core.policy)"
+        )
+    else:
+        raise ValueError(
+            f"unknown quality mode {mode!r}; supported modes: {', '.join(MODES)}"
+        )
+    warnings.warn(
+        f"{where}: mode/eb/target keyword arguments are deprecated; pass "
+        f"policy={_policy_repr(pol)} instead (repro_torch.core.policy)",
+        DeprecationWarning,
+        stacklevel=stacklevel,
+    )
+    return pol
+
+
+def _policy_repr(p: Policy) -> str:
+    if p.mode == "fixed_accuracy":
+        arg = f"eb_abs={p.eb_abs!r}" if p.eb_abs is not None else f"eb_rel={p.eb_rel!r}"
+        return f"Policy.fixed_accuracy({arg})"
+    attr = TARGET_FIELD.get(p.mode)
+    if attr is not None:
+        return f"Policy.{p.mode}({getattr(p, attr)!r})"
+    return "Policy.raw()"

@@ -1,7 +1,8 @@
 """Algorithm 1 — automatic online selection between SZ and ZFP (paper §5.3),
-for one field, in torch.
+for one field and batched over many, in torch.
 
-Port of the single-field part of `repro.core.selector`. Per field:
+Port of `repro.core.selector` without its warm path (`select_many(cache=)`).
+Per field:
 
   1. sample blocks (rate r_sp);
   2. estimate ZFP's (BR, PSNR) at the user's error bound;
@@ -11,9 +12,10 @@ Port of the single-field part of `repro.core.selector`. Per field:
 
 As in the reference, Algorithm 1 line 11's "error bound 2*delta" is read
 as eb_sz = delta/2, clamped to eb_abs so the user's bound always holds.
-Step 4 of Fig. 2 (`encode_with_selection`) runs the chosen codec through
-the registry; with ``device_encode=True`` the codec finishes Stage III on
-the device.
+`select_many` runs Steps 1-3 for many fields at once over packed batches
+of their sampled blocks. Step 4 of Fig. 2 (`encode_with_selection`) runs
+the chosen codec through the registry; with ``device_encode=True`` the
+codec finishes Stage III on the device.
 """
 
 from __future__ import annotations
@@ -133,6 +135,227 @@ def select(
 
 
 # ---------------------------------------------------------------------------
+# Batched multi-field selection (the engine behind compress_pytree)
+# ---------------------------------------------------------------------------
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+#: per-batch field cap. Two constraints, the second binding: the batched SZ
+#: estimator's int32 sort key seg * (n_pdf + 1) + bin must stay below 2^31
+#: after power-of-two field padding, and the per-run |p log2 p| terms ride
+#: a float32 prefix sum whose running total grows ~17 bits a field, so the
+#: cap keeps the late fields' window error around 1e-3 bits/value.
+MAX_BATCH_FIELDS = 1024
+
+
+def _max_batch_blocks(nd: int) -> int:
+    """Per-batch block cap: bounds batch memory and keeps the int32 coder-bit
+    prefix sums of `estimator.field_sums` exact (a block's worst case is
+    under 4^nd * 128 bits, so cap * 4^nd * 128 < 2^31). A single field
+    bigger than the cap takes the per-field `select`."""
+    return min(1 << 20, (1 << 31) // (4**nd * 128))
+
+
+#: a batchable field: (result index, halo blocks on the device, eb, vr, size)
+Member = tuple[int, torch.Tensor, float, float, int]
+
+
+def select_many(
+    fields,
+    eb_abs: float | None = None,
+    eb_rel: float | None = None,
+    r_sp: float | None = None,
+    transform: str = "zfp",
+    codecs: tuple[str, ...] | None = None,
+    *,
+    policy=None,
+    cache=None,
+    names=None,
+    device=None,
+) -> list[Selection]:
+    """Algorithm 1 on many fields, batched: one estimator pass per
+    dimensionality and batch instead of one per field.
+
+    Each field is cast to float32 and moved to `device` (default the GPU)
+    one at a time, and only its sampled halo blocks (r_sp of its values)
+    are kept, so peak memory is one field plus ~r_sp of all of them. The
+    samples are packed into padded (blocks, 5, ..) batches per
+    dimensionality (at most `MAX_BATCH_FIELDS` fields and
+    `_max_batch_blocks(nd)` blocks each), and Steps 1-3 run with per-field
+    segment reductions. Returns one `Selection` per field; a decision equals
+    the per-field `select`'s up to the float32 reduction order, and the
+    reference's `select_many` for the same batch composition.
+
+    `policy` (a fixed_accuracy `Policy`) is the object form of the
+    eb/r_sp/codecs arguments. `cache=` and `names=` (the warm path) are not
+    ported yet.
+    """
+    if cache is not None or names is not None:
+        raise NotImplementedError(
+            "select_many(cache=..., names=...) needs the warm path "
+            "(core/predictor.py), not yet ported: ROADMAP.md queue A, item 8"
+        )
+    if policy is not None:
+        if policy.mode != "fixed_accuracy":
+            raise ValueError(
+                f"select_many takes a fixed_accuracy policy, got {policy.mode!r} "
+                "(the target modes need controller.solve_many: fixed_psnr, "
+                "fixed_ratio, fixed_ssim, fixed_correlation, fixed_ks)"
+            )
+        if any(v is not None for v in (eb_abs, eb_rel, r_sp, codecs)):
+            raise ValueError("pass either policy= or eb_abs/eb_rel/r_sp/codecs, not both")
+        eb_abs, eb_rel = policy.eb_abs, policy.eb_rel
+        r_sp, codecs = policy.r_sp, policy.codecs
+    r_sp = est.DEFAULT_SAMPLING_RATE if r_sp is None else r_sp
+    codecs = _codecs.DEFAULT_CODECS if codecs is None else codecs
+    dev = _device.resolve(device)
+    fields = list(fields)
+    results: list[Selection | None] = [None] * len(fields)
+    groups = _build_select_members(
+        fields, range(len(fields)), results, eb_abs, eb_rel, r_sp, transform, codecs, dev
+    )
+    _run_select_batches(groups, results, r_sp, transform, codecs)
+    return results  # type: ignore[return-value]
+
+
+def _build_select_members(
+    fields,
+    indices,
+    results: list[Selection | None],
+    eb_abs: float | None,
+    eb_rel: float | None,
+    r_sp: float,
+    transform: str,
+    codecs: tuple[str, ...],
+    device: torch.device,
+) -> dict[int, list[Member]]:
+    """Gather side of `select_many`: fold, value range, the degenerate raw
+    fallback, and the per-field `select` for a field bigger than one batch
+    (written straight into `results`); returns the batchable members by
+    rank, each holding only its sampled halo blocks on `device` (the
+    no-halo blocks are the halo blocks minus the leading row per axis)."""
+    groups: dict[int, list[Member]] = {}
+    for i, x in zip(indices, fields):
+        view = _fold_ndim(_device.as_f32(x, device))
+        vr = float(view.max() - view.min()) if view.numel() else 0.0
+        sel0 = _degenerate_selection(view, vr, eb_abs, eb_rel, r_sp)
+        if sel0 is not None:
+            results[i] = sel0
+            continue
+        if eb_abs is None:
+            if eb_rel is None:
+                raise ValueError("select_many needs eb_abs or eb_rel")
+            eb = eb_rel * vr
+        else:
+            eb = eb_abs
+        starts = est.block_starts(tuple(view.shape), r_sp)
+        if len(starts) > _max_batch_blocks(view.ndim):
+            # bigger alone than a whole batch: the per-field path has no
+            # int32 accumulation to protect
+            results[i] = select(
+                view, eb_abs=float(eb), r_sp=r_sp, transform=transform,
+                codecs=codecs, device=device,
+            )
+            continue
+        groups.setdefault(view.ndim, []).append(
+            (i, est.gather_blocks(view, starts, halo=True), float(eb), vr, _numel(view))
+        )
+        del view
+    return groups
+
+
+def _run_select_batches(
+    groups: dict[int, list[Member]],
+    results: list[Selection | None],
+    r_sp: float,
+    transform: str,
+    codecs: tuple[str, ...],
+) -> None:
+    """Cut each rank's members into batches in order, within the block cap
+    and the field cap (a batch always takes at least one member)."""
+    for nd, members in groups.items():
+        cap = _max_batch_blocks(nd)
+        lo = 0
+        while lo < len(members):
+            hi, blocks = lo, 0
+            while hi < len(members) and (
+                hi == lo
+                or (blocks + len(members[hi][1]) <= cap and hi - lo < MAX_BATCH_FIELDS)
+            ):
+                blocks += len(members[hi][1])
+                hi += 1
+            _select_batch(nd, members[lo:hi], results, r_sp, transform, codecs)
+            lo = hi
+
+
+def _batched_estimates(halo, seg, bounds, eb_f, vr_f, size_f, transform: str):
+    """Steps 1-3 of Fig. 2 over a packed multi-field batch (the reference's
+    jitted program, run eagerly): per-field (br_sz, br_zfp, psnr, eb_sz)."""
+    nd = halo.ndim - 1
+    # one gather serves both estimators: the no-halo blocks are the halo
+    # blocks without their leading row on each axis
+    nohalo = halo[(slice(None),) + (slice(1, None),) * nd]
+    e_zfp = est.estimate_zfp_many(nohalo, seg, bounds, eb_f, vr_f, transform)
+    delta = est.sz_delta_for_psnr(e_zfp.psnr, vr_f)
+    eb_sz = torch.minimum(torch.maximum(delta / 2.0, eb_f * 1e-6), eb_f)
+    e_sz = est.estimate_sz_many(halo, seg, bounds, 2.0 * eb_sz, vr_f, size_f)
+    return e_sz.bitrate, e_zfp.bitrate, e_zfp.psnr, eb_sz
+
+
+def _select_batch(
+    nd: int,
+    members: list[Member],
+    results: list[Selection | None],
+    r_sp: float,
+    transform: str,
+    codecs: tuple[str, ...],
+) -> None:
+    dev = members[0][1].device
+    counts = [len(m[1]) for m in members]
+    n_real_blocks, n_real_fields = sum(counts), len(members)
+    # power-of-two buckets, as the reference pads them; padding blocks are
+    # zeros in a dummy field slot, the last
+    n_blocks = _next_pow2(n_real_blocks)
+    n_fields = _next_pow2(n_real_fields + 1)
+    pad = n_blocks - n_real_blocks
+    halo = torch.cat(
+        [m[1] for m in members] + [torch.zeros((pad,) + tuple(members[0][1].shape[1:]),
+                                               dtype=torch.float32, device=dev)]
+    )
+    seg = torch.repeat_interleave(
+        torch.arange(n_real_fields + 1, dtype=torch.int32),
+        torch.tensor(counts + [pad]),
+    )
+    seg[n_real_blocks:] = n_fields - 1
+    # blocks of field f live at [bounds[f], bounds[f+1]); empty padded slots
+    # collapse, the last slot absorbs the padding blocks
+    bounds = np.zeros(n_fields + 1, np.int32)
+    bounds[1 : n_real_fields + 1] = np.cumsum(counts)
+    bounds[n_real_fields + 1 :] = n_real_blocks
+    bounds[n_fields] = n_blocks
+
+    def padf(v, fill):
+        return torch.tensor(v + [fill] * (n_fields - n_real_fields), dtype=torch.float32,
+                            device=dev)
+
+    out = _batched_estimates(
+        halo, seg.to(dev), torch.from_numpy(bounds).to(dev),
+        padf([m[2] for m in members], 1.0), padf([m[3] for m in members], 1.0),
+        padf([float(m[4]) for m in members], 1.0), transform,
+    )
+    br_sz, br_zfp, psnr, eb_sz = torch.stack(out).cpu().numpy()
+    for f, (i, _, eb, vr, _) in enumerate(members):
+        bs, bz = float(br_sz[f]), float(br_zfp[f])
+        results[i] = Selection(
+            _pick_codec(bs, bz, codecs), float(eb), float(eb_sz[f]), bs, bz,
+            float(psnr[f]), vr, r_sp,
+        )
+
+
+# ---------------------------------------------------------------------------
 # Step 4 — construct the selected compressor and run it
 # ---------------------------------------------------------------------------
 
@@ -193,15 +416,27 @@ def encode_with_selection(
     return _encode_view(view, sel, shape, dtype, device_encode)
 
 
+def select_and_compress(
+    x,
+    eb_abs: float | None = None,
+    eb_rel: float | None = None,
+    r_sp: float = est.DEFAULT_SAMPLING_RATE,
+    *,
+    device=None,
+) -> CompressedField:
+    """Algorithm 1 and Step 4 on one field, on `device` (default the GPU)."""
+    sel = select(x, eb_abs=eb_abs, eb_rel=eb_rel, r_sp=r_sp, device=device)
+    return encode_with_selection(x, sel, device=device)
+
+
 def decompress(cf: CompressedField, *, device=None) -> torch.Tensor:
     """Invert any `CompressedField` to a tensor on `device`, in the recorded
     dtype. Streams decode on the host; selection-less raw fields hold the
     exact original-dtype bytes and restore bit for bit."""
     dev = _device.resolve(device)
     if cf.codec == "raw" and cf.selection is None:
-        arr = _codecs.writeable_frombuffer(cf.data, cf.dtype).reshape(cf.shape)
-    else:
-        arr = _codecs.get(cf.codec).decode(cf.data).reshape(cf.shape).astype(cf.dtype)
+        return _device.from_raw_bytes(cf.data, cf.dtype, cf.shape).to(dev)
+    arr = _codecs.get(cf.codec).decode(cf.data).reshape(cf.shape).astype(cf.dtype)
     return torch.from_numpy(arr).to(dev)
 
 

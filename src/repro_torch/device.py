@@ -46,6 +46,46 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def to_int_saturating(v: torch.Tensor, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """float -> signed integer `dtype` as XLA's convert does it (and the
+    card's `cvt.rzi.sat`): truncated toward zero, saturated at the type's
+    limits (+-inf included), NaN -> 0. A bare `.to(dtype)` is undefined
+    out of range and wraps on the x86 host (inf -> INT32_MIN)."""
+    info = torch.iinfo(dtype)
+    hi, lo = v >= 2.0 ** (info.bits - 1), v < -(2.0 ** (info.bits - 1))
+    out = torch.where(hi | lo | v.isnan(), 0.0, v).to(dtype)
+    return out.masked_fill_(hi, info.max).masked_fill_(lo, info.min)
+
+
+#: torch dtypes numpy has no type for, carried as raw integers of their width
+_NUMPY_ABSENT = {"bfloat16": (torch.bfloat16, torch.int16, np.int16)}
+
+
+def raw_bytes(x) -> bytes:
+    """The exact bytes of an array or tensor, in C order (a bfloat16 tensor
+    as its 16-bit patterns)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        spec = _NUMPY_ABSENT.get(dtype_name(t))
+        return (t.view(spec[1]) if spec else t).numpy().tobytes()
+    return np.asarray(x).tobytes()
+
+
+def from_raw_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
+    """Inverse of `raw_bytes`: a writeable CPU tensor of the recorded dtype
+    name and shape."""
+    spec = _NUMPY_ABSENT.get(dtype)
+    arr = np.frombuffer(bytearray(data), dtype=spec[2] if spec else np.dtype(dtype))
+    t = torch.from_numpy(arr.reshape(shape))
+    return t.view(spec[0]) if spec else t
+
+
+def itemsize(dtype: str) -> int:
+    """Bytes per value of a recorded dtype name, numpy's or torch's."""
+    spec = _NUMPY_ABSENT.get(dtype)
+    return spec[0].itemsize if spec else np.dtype(dtype).itemsize
+
+
 def dtype_name(x) -> str:
     """The numpy-style dtype name of an array or tensor ("float32", ...)."""
     if isinstance(x, torch.Tensor):

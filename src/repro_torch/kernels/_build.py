@@ -12,12 +12,12 @@ one nvcc per missing library, all at once, and waits for them together.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -116,11 +116,22 @@ def build(names=None, verbose: bool = False) -> dict[str, Path]:
     return out
 
 
-@functools.cache
+_LOADED: dict[str, ctypes.CDLL] = {}
+#: one build at a time: the byte encoders of `compress_pytree` launch
+#: kernels from several threads, and a cold first use must build once
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The named kernels' library, built on first use, with its C signatures."""
-    lib = ctypes.CDLL(str(build([name])[name]))
-    for fn, argtypes in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
+        return _LOADED[name]

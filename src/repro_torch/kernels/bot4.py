@@ -26,7 +26,7 @@ import torch
 
 from ..core.transforms import BOT_PRESETS, bot_linf_gain, bot_matrix
 from . import _build
-from .lorenzo import _check
+from .lorenzo import _check, count_launch
 from .ref import bot_fused_ref
 
 #: kernel launches per kernel since the last reset (CPU calls do not count)
@@ -62,7 +62,7 @@ def _launch(name: str, x: torch.Tensor, eb, transform: str):
                 eb_dev.data_ptr(), T, gain, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return recon, bits
 
 

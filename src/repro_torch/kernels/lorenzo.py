@@ -21,6 +21,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,6 +35,15 @@ LAUNCHES = {
     "dequantize2d": 0,
     "dequantize3d": 0,
 }
+
+
+#: the counts are exact under the threads of `compress_pytree`'s encoders
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def reset_launches() -> None:
@@ -64,7 +74,7 @@ def _launch(name: str, x: torch.Tensor, eb: float, out_dtype=torch.int32) -> tor
         rc = fn(x.data_ptr(), out.data_ptr(), *x.shape, ctypes.c_float(eb), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 

@@ -15,6 +15,7 @@ Layout: bit `b` of the stream lives in word `b >> 5` at bit `31 - (b & 31)`
 (MSB first), so the byte-swapped words truncated to ``ceil(nbits/8)`` bytes
 are exactly what `np.packbits` gives for the same bits. Words are held in
 int64 tensors with values below 2^32 (torch has no full uint32 arithmetic);
+codes arrive in up to 32 bits (int32 codes with bit 31 in the sign), and
 every shift is masked back to 32 bits, so results equal uint32 arithmetic.
 Offsets are exclusive prefix sums, so writes never collide on a bit and
 adding is or-ing. Writes past the arena are dropped: the arena can
@@ -32,6 +33,8 @@ WORD_BITS = 32
 _MASK = (1 << WORD_BITS) - 1
 #: elements per (words x window) temporary of the gather packer
 _GATHER_CHUNK = 1 << 24
+#: codes per chunk of the scatter packer
+_SCATTER_CHUNK = 1 << 22
 
 
 def arena_words(nbits: int, min_words: int = 64) -> int:
@@ -42,32 +45,42 @@ def arena_words(nbits: int, min_words: int = 64) -> int:
 
 
 def pack_codes(
-    codes: torch.Tensor, lens: torch.Tensor, offsets: torch.Tensor, n_words: int
+    codes: torch.Tensor,
+    lens: torch.Tensor,
+    offsets: torch.Tensor,
+    n_words: int,
+    *,
+    words: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Pack variable-length codes (MSB first) into a fresh word arena
-    (scatter form). `codes` hold their codeword in the low `lens[i]` bits,
-    `lens` are in [0, 32], `offsets` are the exclusive prefix sum of `lens`.
-    Returns the (n_words,) arena as int64 words."""
-    codes = codes.to(torch.int64)
-    lens = lens.to(torch.int64)
-    offsets = offsets.to(torch.int64)
-    pos = offsets & (WORD_BITS - 1)
-    w0 = offsets >> 5
-    end = pos + lens
-    spill = torch.clamp_min(end - WORD_BITS, 0)
-    hi_shift = torch.clamp(WORD_BITS - end, 0, WORD_BITS - 1)
-    hi = ((codes >> spill) << hi_shift) & _MASK
-    lo_shift = torch.clamp(WORD_BITS - spill, 0, WORD_BITS - 1)
-    lo = torch.where(spill > 0, (codes << lo_shift) & _MASK, 0)
-    live = lens > 0
-    hi = torch.where(live, hi, 0)
-    lo = torch.where(live, lo, 0)
-    # one spare slot past the arena absorbs the dropped writes
-    words = torch.zeros(n_words + 1, dtype=torch.int64, device=codes.device)
-    for idx, val in ((w0, hi), (w0 + 1, lo)):
-        idx = torch.where((idx >= 0) & (idx < n_words), idx, n_words)
-        words.index_add_(0, idx, val)
-    return words[:n_words]
+    """Pack variable-length codes (MSB first) into a word arena (scatter
+    form). `codes` hold their codeword in the low `lens[i]` bits (an int32
+    code of 32 bits carries bit 31 in its sign), `lens` are in [0, 32],
+    `offsets` are the exclusive prefix sum of `lens`. Returns the
+    (n_words,) arena as int64 words: a fresh one, or `words`, added into.
+
+    Codes are taken in chunks so the int64 temporaries stay bounded; the
+    result does not depend on the chunking (writes never share a bit)."""
+    if words is None:
+        words = torch.zeros(n_words, dtype=torch.int64, device=codes.device)
+    for lo in range(0, codes.shape[0], _SCATTER_CHUNK):
+        part = slice(lo, lo + _SCATTER_CHUNK)
+        c = codes[part].to(torch.int64) & _MASK
+        ln = lens[part].to(torch.int64)
+        off = offsets[part].to(torch.int64)
+        pos = off & (WORD_BITS - 1)
+        w0 = off >> 5
+        end = pos + ln
+        spill = torch.clamp_min(end - WORD_BITS, 0)
+        hi_shift = torch.clamp(WORD_BITS - end, 0, WORD_BITS - 1)
+        hi = ((c >> spill) << hi_shift) & _MASK
+        lo_shift = torch.clamp(WORD_BITS - spill, 0, WORD_BITS - 1)
+        low = torch.where(spill > 0, (c << lo_shift) & _MASK, 0)
+        live = ln > 0
+        for idx, val in ((w0, hi), (w0 + 1, low)):
+            # writes past the arena add 0 to word 0
+            keep = live & (idx < n_words)
+            words.index_add_(0, torch.where(keep, idx, 0), torch.where(keep, val, 0))
+    return words
 
 
 def gather_window(min_len: int) -> int:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import to_int_saturating
 from ..core.transforms import (
     block_transform_nd,
     bot_linf_gain,
@@ -24,7 +25,6 @@ from ..core.transforms import (
 
 #: header bits per block (`core.embedded.BLOCK_HEADER_BITS`)
 BLOCK_HEADER_BITS = 24.0
-INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 def _delta(eb, device: torch.device) -> torch.Tensor:
@@ -36,9 +36,7 @@ def to_int32_saturating(v: torch.Tensor) -> torch.Tensor:
     """float -> int32 as XLA's `astype(int32)` and the card's
     `cvt.rzi.s32.f32` convert it: truncated toward zero, saturated at the
     int32 limits (+-inf included), NaN -> 0."""
-    hi, lo = v >= 2.0**31, v < -(2.0**31)
-    out = torch.where(hi | lo | v.isnan(), 0.0, v).to(torch.int32)
-    return out.masked_fill_(hi, INT32_MAX).masked_fill_(lo, INT32_MIN)
+    return to_int_saturating(v, torch.int32)
 
 
 def lorenzo_encode_ref(x: torch.Tensor, eb) -> torch.Tensor:

@@ -55,7 +55,7 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (..., Dh) -> (int8 codes, f32 scales broadcastable on the last dim)."""
     amax = torch.amax(x.abs(), dim=-1, keepdim=True).to(torch.float32)
     scale = amax / 127.0 + 1e-12
-    q = torch.round(x.to(torch.float32) / scale).to(torch.int8)
+    q = _device.to_int_saturating(torch.round(x.to(torch.float32) / scale), torch.int8)
     return q, scale
 
 

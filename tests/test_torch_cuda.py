@@ -363,3 +363,119 @@ def test_cuda_page_cache_replays_on_card(cuda_device):
     b = kvcomp.compress_page(page, pol, cache=cache, name="kv/long/0/k0", device=cuda_device)
     assert cache.events["kv/long/0/k0"] == "hit"
     assert (a.eb, a.nbytes) == (b.eb, b.nbytes)
+
+
+def _pytree_fields():
+    from benchmarks.common import atm_suite, hurricane_suite
+
+    fields = dict(atm_suite(4, size=(96, 192)))
+    fields.update(hurricane_suite(3, size=(16, 48, 48)))
+    fields["walk1d"] = _field((4096,), 7)
+    fields["const"] = np.full((64, 64), 2.0, np.float32)
+    return fields
+
+
+def _close_decisions(got, want):
+    for g, w in zip(got, want):
+        assert g.codec == w.codec
+        assert g.eb_sz == pytest.approx(w.eb_sz, rel=1e-5)
+        assert g.br_sz == pytest.approx(w.br_sz, abs=5e-3)
+        assert g.br_zfp == pytest.approx(w.br_zfp, abs=5e-3)
+
+
+@pytest.mark.parametrize("rel", [1e-3, 1e-4])
+def test_select_many_on_card_equals_cpu(cuda_device, rel):
+    """The batched decisions on the card within the golden tolerances of the
+    port's on the CPU, and of the card's own per-field `select`."""
+    from repro_torch.core import select_many
+
+    arrs = list(_pytree_fields().values())
+    on_card = select_many(arrs, eb_rel=rel, device=cuda_device)
+    _close_decisions(on_card, select_many(arrs, eb_rel=rel, device="cpu"))
+    _close_decisions(on_card, [select(x, eb_rel=rel, device=cuda_device) for x in arrs])
+
+
+def _mixed_tree():
+    rng = np.random.default_rng(11)
+    fields = _pytree_fields()
+    return {
+        "f": fields,
+        "deep": np.cumsum(rng.standard_normal((2, 3, 8, 32, 32)), -1).astype(np.float32),
+        "f64": np.cumsum(rng.standard_normal((64, 64)), 0),
+        "f16": np.cumsum(rng.standard_normal((48, 48)), 1).astype(np.float16),
+        "bf16": torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32)).to(torch.bfloat16),
+        "ids": rng.integers(0, 1000, (128,)).astype(np.int32),
+        "mask": rng.integers(0, 2, (16, 16)).astype(bool),
+        "lr": 3e-4,
+        "card": torch.from_numpy(_field((40, 40), 12)).to("cuda"),
+    }
+
+
+def test_compress_pytree_on_card_equals_cpu(cuda_device):
+    """`compress_pytree(device_encode=True)` on the card: decisions within
+    the golden tolerances of the CPU's and the same bytes where the decision
+    is the same; K1/K2 launched once per 2-D/3-D SZ leaf, from the encoder
+    threads, with no decline; a serial compress gives the same bytes; the
+    decoded tree on the card within each leaf's bound, raw leaves bit for
+    bit."""
+    from repro_torch.core import Policy, compress_pytree, decompress_pytree
+
+    tree = _mixed_tree()
+    pol = Policy.fixed_accuracy(eb_rel=EB_REL)
+    lorenzo.reset_launches()
+    declines = sum(de.DECLINES.values())
+    ct = compress_pytree(tree, pol, device_encode=True, device=cuda_device)
+    launches = dict(lorenzo.LAUNCHES)
+    assert sum(de.DECLINES.values()) == declines
+    views = {name: cf.shape for name, cf in ct.fields.items()}
+    sz2 = sum(1 for n, cf in ct.fields.items() if cf.codec == "sz" and len(_folded(views[n])) == 2)
+    sz3 = sum(1 for n, cf in ct.fields.items() if cf.codec == "sz" and len(_folded(views[n])) == 3)
+    assert sz2 >= 1 and sz3 >= 1
+    assert launches["lorenzo2d_encode"] == sz2 and launches["lorenzo3d_encode"] == sz3
+    cpu_tree = dict(tree, card=tree["card"].cpu())
+    on_cpu = compress_pytree(cpu_tree, pol, device_encode=True, device="cpu")
+    assert list(on_cpu.fields) == list(ct.fields)
+    for name, cf in ct.fields.items():
+        other = on_cpu.fields[name]
+        assert (cf.codec, cf.dtype, cf.shape) == (other.codec, other.dtype, other.shape), name
+        if cf.selection is None or other.selection == cf.selection:
+            assert cf.data == other.data, name
+        else:
+            _close_decisions([cf.selection], [other.selection])
+    serial = compress_pytree(tree, pol, device_encode=True, device=cuda_device, workers=0)
+    assert {k: v.data for k, v in serial.fields.items()} == {k: v.data for k, v in ct.fields.items()}
+    out = decompress_pytree(ct, device=cuda_device)
+    assert out["bf16"].device.type == "cuda" and out["bf16"].dtype == torch.bfloat16
+    assert torch.equal(out["bf16"].cpu().view(torch.int16), tree["bf16"].view(torch.int16))
+    assert torch.equal(out["ids"].cpu(), torch.from_numpy(tree["ids"]))
+    for name, x in tree["f"].items():
+        y = out["f"][name].cpu().numpy()
+        eb = ct.fields[f"f/{name}"].selection.eb_abs
+        assert np.abs(y.astype(np.float64) - x).max() <= eb + 4 * np.spacing(np.abs(x).max()), name
+
+
+def _folded(shape):
+    from repro_torch.core.selector import _fold_ndim
+
+    return tuple(_fold_ndim(np.empty(shape, np.uint8)).shape)
+
+
+#: the ZFP device encode's peak on the 100x500x500 HUR_QICE_0 field before its
+#: (blocks x 64) tensors were narrowed to the reference's types (PERF.md:
+#: `peak_gib` of `chip_smoke.py`'s main path, NVIDIA H100 80GB HBM3)
+ZFP_PEAK_GIB_BEFORE = 6.90
+
+
+def test_zfp_encode_peak_below_the_wide_emitter(cuda_device):
+    from benchmarks.common import hurricane_suite
+
+    x = torch.from_numpy(hurricane_suite(1, size=(100, 500, 500))["QICE_0"]).to(cuda_device)
+    sel = select(x, eb_rel=1e-4, device=cuda_device)
+    assert sel.codec == "zfp"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cf = compress(x, Policy.fixed_accuracy(eb_rel=1e-4), device_encode=True, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert cf.codec == "zfp"
+    assert peak < ZFP_PEAK_GIB_BEFORE, peak

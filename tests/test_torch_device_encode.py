@@ -9,6 +9,7 @@ fallback guard returns None and is counted in `device_encode.DECLINES`.
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import device_encode as r_de
 from repro_torch.core import device_encode as de
@@ -176,3 +177,41 @@ def test_encode_field_device_dispatch():
     assert de.encode_field_device(x, sel) == de.zfp_encode_device(x, 0.01)
     sel.codec = "raw"
     assert de.encode_field_device(x, sel) is None
+
+
+class _WideTensors(TorchDispatchMode):
+    """Records every int64 or float64 tensor an op returns that holds at
+    least `limit` values (other than the arena of `skip` words)."""
+
+    def __init__(self, limit, skip):
+        super().__init__()
+        self.limit, self.skip, self.seen = limit, skip, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if (isinstance(t, torch.Tensor) and t.dtype in (torch.int64, torch.float64)
+                    and t.numel() >= self.limit and tuple(t.shape) != (self.skip,)):
+                self.seen.append((str(func), tuple(t.shape), t.dtype))
+        return out
+
+
+@pytest.mark.parametrize("shape,rel", [((96, 80), 1e-3), ((24, 40, 32), 1e-3),
+                                       ((16, 20, 24), 1e-5)])
+def test_zfp_emitter_holds_no_wide_block_tensor(monkeypatch, shape, rel):
+    """The plane emitter keeps the reference's types: magnitudes int32, bit
+    lengths and ranks int8, chunk values in 32 bits. No op of the ZFP device
+    encode returns an int64 or float64 tensor of (blocks x 4^nd) values or
+    more, apart from the word arena; the stream stays the reference's."""
+    x = torch.from_numpy(_field(shape, "walk", 8))
+    eb = _eb(x.numpy(), rel)
+    arena = []
+    real = pack.arena_words
+    monkeypatch.setattr(pack, "arena_words", lambda *a: arena.append(real(*a)) or arena[-1])
+    want = r_de.zfp_encode_device(x.numpy(), eb)
+    nvals = int(np.prod([s + (-s) % 4 for s in shape]))
+    de.zfp_encode_device(x, eb)  # sizes the arena
+    with _WideTensors(nvals, arena[-1]) as mode:
+        got = de.zfp_encode_device(x, eb)
+    assert got is not None and got == want
+    assert mode.seen == []
