@@ -170,17 +170,80 @@ def sz_psnr(eb, vr) -> torch.Tensor:
 PSNR_MATCH_QUANTUM = 0.05
 
 
-def sz_delta_for_psnr(psnr: torch.Tensor, vr) -> torch.Tensor:
+#: glibc's `powf` (the float32 `pow` XLA's CPU backend calls) computes
+#: x^y as 2^(y * log2 x) in double: log2 x from a 16-entry table and a
+#: degree-5 polynomial, 2^t from 2^(i/32) and a cubic, then one rounding to
+#: float32. `_pow10_f32` takes the same steps for x = 10. This is the
+#: double its log2 step gives for 10 (about 3.8e3 ulps above log2(10)).
+_POWF_LOG2_10 = float.fromhex("0x1.a934f0979b22dp+1")
+#: its 2^r polynomial on r in [-1/64, 1/64], highest power first
+_POWF_EXP2_POLY = tuple(
+    float.fromhex(h)
+    for h in ("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1")
+)
+#: adding and subtracting 1.5 * 2^47 rounds a double to a multiple of 1/32
+_POWF_SHIFT = float.fromhex("0x1.8p+47")
+
+
+def _exp2_table() -> torch.Tensor:
+    """2^(i/32), i < 32, each correctly rounded to double (glibc's table)."""
+    from decimal import Decimal, localcontext
+
+    with localcontext() as ctx:
+        ctx.prec = 40
+        vals = [float(Decimal(2) ** (Decimal(i) / 32)) for i in range(32)]
+    return torch.tensor(vals, dtype=torch.float64)
+
+
+_EXP2_TABLE = _exp2_table()
+
+
+def _pow10_f32(y: torch.Tensor) -> torch.Tensor:
+    """float32 10^y bit for bit as the reference computes `10.0 ** y` on the
+    CPU, compiled or eager: glibc's `powf`, which is not correctly rounded
+    (at y = -4.07, -4.9875 and -6.555 it is one ulp above the float32
+    nearest 10^y). Only IEEE double adds and multiplies, so the card gives
+    the same bits."""
+    xd = y.to(torch.float64) * _POWF_LOG2_10
+    bad = ~torch.isfinite(xd)
+    xs = torch.where(bad, 0.0, xd).clamp(-400.0, 400.0)
+    kd = (xs + _POWF_SHIFT) - _POWF_SHIFT  # k/32, the nearest multiple
+    r = xs - kd
+    k = torch.round(kd * 32.0).to(torch.int64)
+    i = torch.remainder(k, 32)
+    e = torch.div(k - i, 32, rounding_mode="floor").to(torch.float64)
+    s = _EXP2_TABLE.to(xd.device)[i] * torch.pow(2.0, e)
+    c0, c1, c2 = _POWF_EXP2_POLY
+    z = c0 * r + c1
+    p = c2 * r + 1.0
+    p = z * (r * r) + p
+    out = (p * s).to(torch.float32)
+    # XLA runs with subnormals flushed to zero
+    out = torch.where(out < torch.finfo(torch.float32).tiny, 0.0, out)
+    # 10^inf = inf, 10^-inf = 0, NaN stays NaN
+    return torch.where(bad, torch.exp2(xd.to(torch.float32)), out)
+
+
+def sz_delta_for_psnr(psnr: torch.Tensor, vr, *, eager: bool = False) -> torch.Tensor:
     """Invert Eq. (10): delta = VR * sqrt(12) * 10^(-PSNR/20), with PSNR
-    snapped to the PSNR_MATCH_QUANTUM grid."""
-    psnr_q = torch.round(psnr / PSNR_MATCH_QUANTUM) * PSNR_MATCH_QUANTUM
-    # As the reference's compiled program evaluates it: the division by 20
-    # becomes a float32 multiplication by 0.05 (XLA rewrites division by a
-    # constant), and 10^y is rounded once to float32. A few ulps here move
-    # round(x / delta) at .5 ties, which the Chao1 table cost amplifies.
-    y = -psnr_q * 0.05
-    pow10 = torch.pow(10.0, y.to(torch.float64)).to(torch.float32)
-    return _f32(vr, psnr.device) * math.sqrt(12.0) * pow10
+    snapped to the PSNR_MATCH_QUANTUM grid, in float32 bit for bit with the
+    reference's `sz_delta_for_psnr`.
+
+    The default follows its compiled program (inside `select` and
+    `select_many`), where XLA turns each division by a constant into a
+    multiplication by the reciprocal: PSNR * 20, and -psnr_q * 0.05.
+    `eager=True` follows the same function run outside jit, op by op (the
+    controller's seed), where both are true divisions. A few ulps in delta
+    move round(x / delta) at .5 ties, which the Chao1 table cost amplifies.
+    """
+    psnr = torch.as_tensor(psnr, dtype=torch.float32)
+    if eager:
+        psnr_q = torch.round(psnr / PSNR_MATCH_QUANTUM) * PSNR_MATCH_QUANTUM
+        y = -psnr_q / 20.0
+    else:
+        psnr_q = torch.round(psnr * 20.0) * PSNR_MATCH_QUANTUM
+        y = -psnr_q * 0.05
+    return _f32(vr, psnr.device) * math.sqrt(12.0) * _pow10_f32(y)
 
 
 def sz_bitrate_from_hist(
