@@ -32,16 +32,25 @@ phase that goes wrong:
    declined and that every decoded value is within eb_abs;
 5. `ops.lorenzo_decode` (K3/K4) on the main path's SZ fields, from the
    K1/K2 codes at their eb_sz, within eb + 4 spacing(max|x|);
-6. CPU against card at reduced sizes: decisions within the golden-suite
-   tolerances and container bytes equal for the same `Selection`;
-7. the KV page tier at the full width of phi4-mini-3.8b (32 layers, 8 KV
+6. the quality targets (fixed_psnr 60, fixed_ratio 8, fixed_ssim 0.97,
+   fixed_correlation 0.995, fixed_ks 0.1): `solve_many` on the 17
+   paper-sized fields under each mode beside `select_many` (one
+   `[targets]` line a mode); `compress(..., device_encode=True)` and
+   `decompress` round trips at full width (`[targets-rt]`: an ATM field
+   within 1 dB of 60 dB, an ATM and a Hurricane SZ field within 10% of
+   ratio 8); `compress_pytree` under a `PolicySet` with a rule per mode,
+   every decoded leaf within its contract; K1 and K2 launched from it;
+7. CPU against card at reduced sizes: decisions within the golden-suite
+   tolerances and container bytes equal for the same `Selection`, and the
+   target solves under each mode within the CPU parity suite's;
+8. the KV page tier at the full width of phi4-mini-3.8b (32 layers, 8 KV
    heads of 128): one 2048-token request's bf16 K and V arenas on the
    card, every page stack evicted through `compress_page` under the
    serving policy (fixed_ratio 8, K6), restored with `decompress_page`,
    and evicted again (all decision-cache hits); eight flat (2048, 1024)
    pages through `bot_compress_kv` (K5); four stacks through the device
    encoder and four raw;
-8. one JSON line with every kernel's launches on its path, error, times,
+9. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -831,6 +840,203 @@ def phase_select_many(torch, np, dev, atm, hurricane):
         per_field_select_ms=per_field_ms, speedup=per_field_ms / many_ms)))
 
 
+#: the target phase's modes at the reference's own test targets
+TARGET_MODES = [("fixed_psnr", 60.0), ("fixed_ratio", 8.0), ("fixed_ssim", 0.97),
+                ("fixed_correlation", 0.995), ("fixed_ks", 0.1)]
+#: solve decisions on the card against the port's on the CPU (the CPU
+#: parity suite's tolerances against the reference)
+TARGET_EB_RTOL = 1e-4
+
+
+def _target_policy(mode, target):
+    from repro_torch.core import Policy
+
+    return getattr(Policy, mode)(target)
+
+
+def phase_targets(torch, np, dev, atm, hurricane):
+    """`solve_many` on the 17 paper-sized fields under each target mode
+    (host clock ending in a synchronize, after a warm-up solve of two small
+    fields per mode), beside `select_many` on the same fields; the metric
+    modes' one host copy of the sampled blocks. Returns the fixed_ratio
+    solutions by field name."""
+    from repro_torch.core import Policy, select_many, solve_many
+    from repro_torch.core import controller as ctl
+
+    fields = {**atm, **{f"HUR_{k}": v for k, v in hurricane.items()}}
+    arrs = list(fields.values())
+    rng = np.random.default_rng(5)
+    small = [np.cumsum(rng.standard_normal(s), axis=0).astype(np.float32)
+             for s in ((96, 192), (16, 48, 48))]
+    for mode, target in TARGET_MODES:
+        solve_many(small, _target_policy(mode, target), device=dev)
+    select_many(arrs, eb_rel=EB_REL, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    select_many(arrs, eb_rel=EB_REL, device=dev)
+    torch.cuda.synchronize()
+    select_ms = (time.perf_counter() - t0) * 1e3
+    by_mode = {}
+    for mode, target in TARGET_MODES:
+        pol = _target_policy(mode, target)
+        ctl.HOST_COPY.update(bytes=0, ms=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = solve_many(arrs, pol, device=dev)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        for name, s in zip(fields, sols):
+            check(s.selection.codec in ("sz", "zfp", "raw"), f"{mode} {name}: codec {s.selection.codec}")
+            check(math.isfinite(s.est_bitrate) and s.selection.eb_abs > 0,
+                  f"{mode} {name}: bound {s.selection.eb_abs}, rate {s.est_bitrate}")
+        metric = mode in ctl.qual.MODE_METRIC
+        check((ctl.HOST_COPY["bytes"] > 0) == metric, f"{mode}: host copy {ctl.HOST_COPY}")
+        codecs = {c: sum(s.selection.codec == c for s in sols) for c in ("sz", "zfp", "raw")}
+        on = sum(bool(s.on_target) for s in sols)
+        check(on >= 1, f"{mode}: no field on target")
+        log("targets", json.dumps(dict(
+            mode=mode, target=target, fields=len(arrs), solve_ms=solve_ms,
+            select_many_ms=select_ms, codecs=codecs, on_target=on,
+            host_copy_ms=ctl.HOST_COPY["ms"] if metric else None,
+            host_copy_mb=ctl.HOST_COPY["bytes"] / 1e6 if metric else None)))
+        by_mode[mode] = dict(zip(fields, sols))
+    return by_mode
+
+
+def _psnr_db(np, x, y):
+    from benchmarks.common import psnr
+
+    return psnr(x, np.asarray(y).reshape(x.shape))
+
+
+def phase_target_roundtrips(torch, np, dev, atm, hurricane, by_mode):
+    """`compress(..., device_encode=True)` then `decompress` under a target
+    at full width: an ATM field under fixed_psnr(60) (within 1 dB), an ATM
+    field and the first Hurricane field the solve gives to SZ under
+    fixed_ratio(8) (the stream's ratio within 10%; the ATM one decoded).
+    Returns the K1/K2 launches of the compresses."""
+    from repro_torch.core import compress, decompress, solve
+    from repro_torch.kernels import lorenzo
+
+    ratio_sols = by_mode["fixed_ratio"]
+    hur = next(k for k in hurricane if ratio_sols[f"HUR_{k}"].selection.codec == "sz")
+    cases = [("ATM_00", atm["ATM_00"], ("fixed_psnr", 60.0), True),
+             ("ATM_01", atm["ATM_01"], ("fixed_ratio", 8.0), True),
+             (f"HUR_{hur}", hurricane[hur], ("fixed_ratio", 8.0), False)]
+    launches = {"lorenzo2d_encode": 0, "lorenzo3d_encode": 0}
+    for name, x, (mode, target), decode in cases:
+        pol = _target_policy(mode, target)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sol = solve(x, pol, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lorenzo.reset_launches()
+        cf = compress(x, pol, device_encode=True, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = {k: lorenzo.LAUNCHES[k] for k in launches}
+        for k in launches:
+            launches[k] += got[k]
+        check(cf.codec == sol.selection.codec, f"{name}: compress chose {cf.codec}, solve "
+              f"{sol.selection.codec}")
+        ratio = x.size * 4 / len(cf.data)
+        row = dict(field=name, shape=list(x.shape), mode=mode, target=target, codec=cf.codec,
+                   on_target=bool(sol.on_target), ratio=ratio, solve_ms=(t1 - t0) * 1e3,
+                   compress_ms=(t2 - t1) * 1e3, solve_share=(t1 - t0) / (t2 - t1),
+                   k1_launches=got["lorenzo2d_encode"], k2_launches=got["lorenzo3d_encode"])
+        check(cf.codec != "sz" or sum(got.values()) == 1, f"{name}: SZ field ran {got}")
+        if decode:
+            y = decompress(cf, device=dev)
+            torch.cuda.synchronize()
+            row.update(decompress_ms=(time.perf_counter() - t2) * 1e3,
+                       psnr=_psnr_db(np, x, y.cpu().numpy()))
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log("targets-rt", json.dumps(row))
+        if mode == "fixed_psnr":
+            check(abs(row["psnr"] - target) <= 1.0, f"{name}: PSNR {row['psnr']} for {target}")
+        else:
+            check(abs(ratio / target - 1.0) <= 0.10, f"{name}: ratio {ratio} for {target}")
+    return launches
+
+
+def phase_target_pytree(torch, np, dev, atm, hurricane):
+    """`compress_pytree(..., device_encode=True)` under a `PolicySet` with
+    one rule per target mode (512x512 ATM crops, a 32x128x128 Hurricane
+    crop), decoded by `decompress_pytree`; every leaf meets its contract on
+    the decoded values. Returns the K1/K2 launches of the compress."""
+    from repro_torch.core import Policy, PolicySet, compress_pytree, decompress_pytree
+    from repro_torch.core import quality
+    from repro_torch.kernels import lorenzo
+
+    crops = [x[:512, :512].copy() for x in atm.values()]
+    tree = {"psnr": {"atm": crops[0], "hur": hurricane["U_2"][:32, :128, :128].copy()},
+            "ratio": {"atm": crops[1]}, "ssim": {"atm": crops[2]}, "corr": {"atm": crops[3]},
+            "ks": {"atm": atm["ATM_00"][-512:, -512:].copy()}}
+    rules = [(f"{k}/*", _target_policy(m, t)) for k, (m, t) in zip(
+        ("psnr", "ratio", "ssim", "corr", "ks"), TARGET_MODES)]
+    pset = PolicySet(default=Policy.fixed_accuracy(eb_rel=EB_REL), rules=rules)
+    lorenzo.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ct = compress_pytree(tree, pset, device_encode=True, device=dev)
+    torch.cuda.synchronize()
+    compress_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: lorenzo.LAUNCHES[k] for k in ("lorenzo2d_encode", "lorenzo3d_encode")}
+    out = decompress_pytree(ct, device=dev)
+    achieved = {}
+    for group, leaves in tree.items():
+        for leaf, x in leaves.items():
+            name = f"{group}/{leaf}"
+            pol, cf = pset.resolve(name), ct.fields[name]
+            y = out[group][leaf].cpu().numpy()
+            if pol.mode == "fixed_psnr":
+                a = _psnr_db(np, x, y)
+                ok = abs(a - pol.target_psnr) <= 1.0
+            elif pol.mode == "fixed_ratio":
+                a = x.size * 4 / cf.nbytes
+                ok = abs(a / pol.target_ratio - 1.0) <= 0.10
+            else:
+                metric = quality.MODE_METRIC[pol.mode]
+                a = quality.measured_metric(metric, x, y)
+                gap = quality.metric_gap(metric, a, getattr(pol, f"target_{metric}"))
+                ok = gap <= quality.TOLERANCE[metric]
+            achieved[name] = (cf.codec, a)
+            check(ok, f"{name}: {pol.mode} achieved {a}")
+    log("targets-pytree", json.dumps(dict(
+        leaves=len(ct.fields), achieved=achieved, compress_ms=compress_ms, ratio=ct.ratio,
+        k1_launches=launches["lorenzo2d_encode"], k2_launches=launches["lorenzo3d_encode"])))
+    return launches
+
+
+def phase_targets_cpu_vs_card(torch, np, dev):
+    """The fields of `phase_cpu_vs_card` under each target mode: the card's
+    `solve_many` against the port's on the CPU."""
+    from benchmarks.common import atm_suite, hurricane_suite
+    from repro_torch.core import solve_many
+
+    fields = dict(atm_suite(4, size=(384, 768)))
+    fields.update(hurricane_suite(4, size=(32, 96, 96)))
+    arrs = list(fields.values())
+    for mode, target in TARGET_MODES:
+        pol = _target_policy(mode, target)
+        on_cpu = solve_many(arrs, pol, device="cpu")
+        on_card = solve_many(arrs, pol, device=dev)
+        identical = 0
+        for name, c, g in zip(fields, on_cpu, on_card):
+            cs, gs = c.selection, g.selection
+            check((cs.codec, c.on_target) == (gs.codec, g.on_target),
+                  f"{mode} {name}: {cs.codec}/{c.on_target} on CPU, {gs.codec}/{g.on_target} on card")
+            for k in ("eb_abs", "eb_sz"):
+                check(abs(getattr(cs, k) - getattr(gs, k)) <= TARGET_EB_RTOL * abs(getattr(cs, k)),
+                      f"{mode} {name}: {k} {getattr(cs, k)} vs {getattr(gs, k)}")
+            check(abs(c.est_bitrate - g.est_bitrate) <= BR_ATOL,
+                  f"{mode} {name}: est_bitrate {c.est_bitrate} vs {g.est_bitrate}")
+            identical += c == g
+        log("targets-cpu-vs-card", f"{mode}: {len(arrs)} fields agree, {identical} identical")
+
+
 def pytree(torch, np, dev, atm, hurricane, rows):
     """The pytree phase's tree: the main path's six fields, a folded 5-D
     float32 leaf, float64, bfloat16 (on the card), int, bool, 0-d float,
@@ -1102,9 +1308,17 @@ def main() -> int:
     phase_select_many(torch, np, dev, atm, hurricane)
     for name, n in phase_pytree(torch, np, dev, atm, hurricane, rows, card).items():
         launches[name] += n
-    del atm, hurricane
+    by_mode = phase_targets(torch, np, dev, atm, hurricane)
+    target_launches = phase_target_roundtrips(torch, np, dev, atm, hurricane, by_mode)
+    for name, n in phase_target_pytree(torch, np, dev, atm, hurricane).items():
+        target_launches[name] += n
+    for name, n in target_launches.items():
+        check(n >= 1, f"{name} never launched from the target phase")
+        launches[name] += n
+    del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)
+    phase_targets_cpu_vs_card(torch, np, dev)
     launches.update(phase_kv(torch, np, dev))
 
     kernels = []

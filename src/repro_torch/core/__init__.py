@@ -1,9 +1,10 @@
 """repro_torch.core — Algorithm 1 for one field and batched over many, the
-SZ and ZFP byte codecs, the device-resident encode, and pytrees, in
-PyTorch."""
+quality-target controller, the SZ and ZFP byte codecs, the device-resident
+encode, and pytrees, in PyTorch."""
 
-from . import codecs
+from . import codecs, quality
 from .api import CompressedTree, compress, compress_pytree, decompress_pytree
+from .controller import TargetSolution, estimate_curves, solve, solve_many
 from .policy import Policy, PolicySet
 from .selector import (
     CompressedField,
@@ -24,6 +25,7 @@ __all__ = [
     "Policy",
     "PolicySet",
     "Selection",
+    "TargetSolution",
     "codecs",
     "compress",
     "compress_pytree",
@@ -31,9 +33,13 @@ __all__ = [
     "decompress",
     "decompress_pytree",
     "encode_with_selection",
+    "estimate_curves",
+    "quality",
     "select",
     "select_and_compress",
     "select_many",
+    "solve",
+    "solve_many",
     "sz_compress",
     "sz_decompress",
     "zfp_compress",

@@ -7,14 +7,22 @@ as a `Policy` (`core/policy.py`):
 * ``Policy.fixed_accuracy(eb_rel=...)`` / ``(eb_abs=...)`` — the paper's
   bound-centric contract: Algorithm 1 picks the cheaper codec at that
   pointwise bound.
+* ``Policy.fixed_psnr(db)`` — the quality-target controller (DESIGN.md
+  §7, `core/controller.py`) solves for the per-field bound that lands on
+  the target dB.
+* ``Policy.fixed_ratio(x)`` — the controller solves for the bound whose
+  estimated rate meets the byte budget (x vs 32-bit raw).
+* ``Policy.fixed_ssim(s)`` / ``Policy.fixed_correlation(rho)`` /
+  ``Policy.fixed_ks(d)`` — the quality-metric targets (DESIGN.md §7.4): the
+  controller inverts the per-field metric curve (`core/quality.py`) to an
+  equivalent-PSNR target and solves that; SSIM and correlation are floors,
+  KS a ceiling.
 * ``Policy.raw()`` — store verbatim (exact bytes, original dtype).
-* The target modes (fixed_psnr, fixed_ratio, fixed_ssim,
-  fixed_correlation, fixed_ks) need the quality-target controller, which
-  the port does not carry yet; they raise `NotImplementedError`.
 
 `compress_pytree` also takes a `PolicySet` of per-leaf-name rules. Leaves
 are grouped by resolved policy, each group's decisions come from one
-batched `select_many`, and the byte encoders then run on a thread pool.
+batched `select_many` or `solve_many`, and the byte encoders then run on a
+thread pool.
 The legacy keyword spelling (`mode=`, `eb_rel=`, ...) and a bare mode
 string or float bound in the policy slot map onto the equivalent `Policy`
 with a `DeprecationWarning`.
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from . import controller as _controller
 from . import pytree as _pytree
 from .policy import Policy, PolicySet, as_policy_set, group_by_policy, policy_from_kwargs
 from .selector import (
@@ -46,12 +55,6 @@ from .selector import (
     select_and_compress,
     select_many,
 )
-
-_TARGETS_NOT_PORTED = (
-    "needs the quality-target controller (core/controller.py), not yet "
-    "ported: ROADMAP.md queue A, item 7"
-)
-
 
 #: bytes per value of a recorded dtype name (bfloat16 without `ml_dtypes`)
 _dtype_itemsize = _device.itemsize
@@ -139,10 +142,12 @@ def _coerce_policy(
 
 def _policy_selections(fields: list, pol: Policy, device) -> list[Selection]:
     """One policy group's decisions: fixed_accuracy runs Algorithm 1
-    batched (`select_many`); the target modes are not ported yet."""
+    batched (`select_many`); the target modes run the controller
+    (`solve_many`) and unwrap its `TargetSolution`s."""
     if pol.mode == "fixed_accuracy":
         return select_many(fields, policy=pol, device=device)
-    raise NotImplementedError(f"compress_pytree under {pol.mode!r} {_TARGETS_NOT_PORTED}")
+    sols = _controller.solve_many(fields, pol, device=device)
+    return [s.selection for s in sols]
 
 
 def compress(
@@ -164,21 +169,32 @@ def compress(
       x: the field, a numpy array or a tensor of any shape, evaluated in
         float32 (the original dtype is recorded and restored by
         `decompress`). Ranks above 3 are folded to 3-D.
-      policy: the quality contract; default `Policy.fixed_accuracy()`
-        (eb_rel 1e-4). Fixed-accuracy bounds hold pointwise on every value
-        of the reconstruction.
+      policy: the quality contract (`core/policy.py`):
+        `Policy.fixed_accuracy(eb_rel=...)` (default, at eb_rel 1e-4) |
+        `Policy.fixed_psnr(db)` | `Policy.fixed_ratio(x)` |
+        `Policy.fixed_ssim(s)` | `Policy.fixed_correlation(rho)` |
+        `Policy.fixed_ks(d)` | `Policy.raw()`. Fixed-accuracy bounds hold
+        pointwise on every value of the reconstruction (`eb_rel` scales by
+        the field's value range); fixed_psnr lands on the target dB (not
+        merely above it); fixed_ratio meets the estimated byte budget
+        within ~10%, with the chosen bound in `.selection.eb_abs`; the
+        metric modes land on the metric target within
+        `quality.TOLERANCE`, SSIM and correlation as floors and KS as a
+        ceiling. The policy's `codecs` allowlist restricts which codecs
+        compete; `r_sp` is the estimator's block sampling rate.
       device_encode: finish Stage III on the device where the selected
         codec supports it; the decision is unchanged, and a field the
         device encoder declines takes the host coder.
-      device: where selection and the device encode run; default the GPU.
+      device: where selection (or the target solve) and the device
+        encode run; default the GPU.
       mode / eb_rel / eb_abs / target_psnr / target_ratio / r_sp:
         deprecated keyword spelling of the same contract, mapped onto a
         `Policy` with a `DeprecationWarning`.
 
     Raw fallback: fields that are too small (< 64 values or a dim < 4),
     constant, or NaN/inf-poisoned store verbatim with codec ``raw``; so
-    does any field whose estimated rate reaches 32 bits/value, and any
-    stream that fails to beat raw.
+    does any field whose estimated rate reaches 32 bits/value at the
+    requested quality, and any stream that fails to beat raw.
     """
     pol = _coerce_policy(
         "compress", policy, mode, eb_rel, eb_abs, target_psnr, target_ratio, r_sp
@@ -189,13 +205,14 @@ def compress(
     shape, dtype = tuple(x.shape), _device.dtype_name(x)
     if pol.mode == "raw":
         return CompressedField("raw", _device.raw_bytes(x), shape, dtype)
-    if pol.mode != "fixed_accuracy":
-        raise NotImplementedError(f"compress under {pol.mode!r} {_TARGETS_NOT_PORTED}")
     view = _fold_ndim(_device.as_f32(x, dev))
-    sel = select(
-        view, eb_abs=pol.eb_abs, eb_rel=pol.eb_rel, r_sp=pol.r_sp,
-        codecs=pol.codecs, device=dev,
-    )
+    if pol.mode == "fixed_accuracy":
+        sel = select(
+            view, eb_abs=pol.eb_abs, eb_rel=pol.eb_rel, r_sp=pol.r_sp,
+            codecs=pol.codecs, device=dev,
+        )
+    else:
+        sel = _controller.solve(view, pol, device=dev).selection
     return _encode_view(view, sel, shape, dtype, device_encode)
 
 
@@ -265,7 +282,8 @@ def compress_pytree(
         integers, bools), ride raw: exact bytes, original dtype.
       workers: thread-pool width for the byte encoders (0 encodes serially;
         default min(8, cpus - 1)). Decisions are batched regardless: each
-        policy group's sampled blocks go through `select_many`.
+        policy group's sampled blocks go through `select_many`
+        (fixed_accuracy) or `solve_many` (the target modes).
       sharded: the shard-local engine is not ported yet; True raises.
       cache: the warm path is not ported yet; a cache raises.
       device_encode: finish Stage III on the device for codecs that can;

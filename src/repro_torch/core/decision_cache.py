@@ -104,9 +104,10 @@ class DecisionCache:
     slowly-moving fields, decisions possibly one step stale (bounds stay
     guaranteed; see the module docstring).
 
-    ``warm_start=True`` lets the quality-target controller (not ported
-    yet) seed its secant from an *invalidated* entry's solved bound
-    (`stale`), cutting refinement rounds on drifted fields. Off by default: warm-started re-solves can
+    ``warm_start=True`` lets the quality-target controller seed its
+    secant from an *invalidated* entry's solved bound (`stale`), cutting
+    refinement rounds on drifted fields (`solve_many(cache=...)`, the warm
+    path, is not ported yet). Off by default: warm-started re-solves can
     differ from cold solves in ulps, and the default contract is
     bit-identity.
     """

@@ -62,6 +62,7 @@ def _table_bits_per_symbol() -> float:
 
 TABLE_BITS_PER_SYMBOL = _table_bits_per_symbol()
 LN2 = math.log(2.0)
+LN10 = math.log(10.0)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +151,7 @@ def lorenzo_residual_samples(
 
 @dataclass
 class Estimate:
-    bitrate: torch.Tensor
+    bitrate: torch.Tensor | None  # None from estimate_zfp_many(mode="psnr")
     psnr: torch.Tensor
 
 
@@ -313,10 +314,88 @@ def _exp2(p: torch.Tensor) -> torch.Tensor:
     return torch.exp(p.to(torch.float32) * _LN2_F32)
 
 
+def _f32_bits(u: int) -> float:
+    """The float32 constant whose bits are `u`."""
+    return float(np.array([u], np.uint32).view(np.float32)[0])
+
+
+#: XLA's CPU float32 log (Cephes' logf): x = m 2^e with m in [sqrt(1/2),
+#: sqrt 2), log(m) from a degree-8 polynomial in m - 1, and log 2 split in
+#: two, q2 + q1. The coefficients, in the order the code uses them.
+_XLA_LOG_P = tuple(
+    _f32_bits(u)
+    for u in (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF,
+              0xBE2AAE50, 0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+)
+_XLA_LOG_Q1, _XLA_LOG_Q2 = _f32_bits(0xB95E8083), _f32_bits(0x3F318000)
+_SQRT_HALF_F32 = _f32_bits(0x3F3504F3)
+#: -10 log10(x) = log(x) * this, the two constants folded as XLA folds
+#: them: f32(-10 * f32(1 / ln 10))
+_NEG10_OVER_LN10 = float(np.float32(-10.0) * np.float32(1.0 / LN10))
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 a*b + c with one rounding (the FMAs XLA's CPU code uses):
+    the product is exact in double, and the double sum rounds to the same
+    float32 but for ties too rare to meet."""
+    d = torch.float64
+    return (torch.as_tensor(a).to(d) * torch.as_tensor(b).to(d) + torch.as_tensor(c).to(d)).to(
+        torch.float32
+    )
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log bit for bit as the reference's compiled programs
+    take it on the CPU (XLA's polynomial, with its FMAs; subnormal inputs
+    count as zero). torch's log differs from it by an ulp on about one
+    value in seven, enough to move the controller's secant."""
+    x = x.to(torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    xc = torch.where(torch.isnan(x) | (x <= tiny), tiny, x)
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # [1/2, 1)
+    low = m < _SQRT_HALF_F32
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.to(torch.float32)
+    t2 = t * t
+    t3 = t2 * t
+    p0, p1, p2, p3, p4, p5, p6, p7, p8 = _XLA_LOG_P
+    y = _fma32(_fma32(p0, t, p1), t, p2)
+    y1 = _fma32(_fma32(p3, t, p4), t, p5)
+    y = _fma32(y, t3, y1)
+    y2 = _fma32(_fma32(p6, t, p7), t, p8)
+    y = _fma32(t3, y, y2)
+    y = _fma32(y, t3, _XLA_LOG_Q1 * e)
+    r = _fma32(-0.5, t2, t) + y
+    r = _fma32(_XLA_LOG_Q2, e, r)
+    r = torch.where(x.abs() < tiny, -math.inf, r)
+    r = torch.where(x == math.inf, math.inf, r)
+    return torch.where((x < 0) | torch.isnan(x), math.nan, r)
+
+
+#: XLA takes log2 as log(x) * f32(1 / ln 2)
+_INV_LN2_F32 = float(np.float32(1.0 / LN2))
+
+
+def _xla_log2(x: torch.Tensor) -> torch.Tensor:
+    """float32 log2 as the reference's compiled estimators take it (a
+    floor or ceil of it moves a bit plane where torch's exact log2 of a
+    power of two, or of a value an ulp from one, lands on the other side)."""
+    return _xla_log(x) * _INV_LN2_F32
+
+
+def _neg10_log10(x: torch.Tensor) -> torch.Tensor:
+    """`-10 * log10(max(x, 1e-60))` as the reference's compiled estimators
+    evaluate it (1e-60 is 0 in float32; the two constants fold into one)."""
+    return _xla_log(torch.clamp_min(x, 0.0)) * _NEG10_OVER_LN10
+
+
 def _plane_step(eb, e_max: torch.Tensor, linf_gain_n: float) -> torch.Tensor:
-    """`embedded.plane_step` with the reference estimator's `_exp2`."""
+    """`embedded.plane_step` with the reference estimator's `_exp2` and
+    `_xla_log2`."""
     raw = eb / (_exp2(e_max) * linf_gain_n)
-    return _exp2(torch.floor(torch.log2(torch.clamp_min(raw, 2.0**-60))))
+    return _exp2(torch.floor(_xla_log2(torch.clamp_min(raw, 2.0**-60))))
 
 
 def _ec_point_mask(nd: int) -> np.ndarray:
@@ -352,7 +431,7 @@ def estimate_zfp(
     blocks = gather_blocks(x, starts, halo=False).to(torch.float32)
     n_s = blocks.shape[0]
     mx = torch.clamp_min(torch.amax(blocks.reshape(n_s, -1).abs(), dim=1), 1e-30)
-    e = to_int_saturating(torch.ceil(torch.log2(mx)))
+    e = to_int_saturating(torch.ceil(_xla_log2(mx)))
     norm = blocks * _exp2(-e).reshape((-1,) + (1,) * nd)
     coeffs = block_transform_nd(norm, bot_matrix(transform), nd)
     gain_n = bot_linf_gain(transform) ** nd
@@ -437,6 +516,26 @@ def field_sums(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     return cs[bounds[1:]] - cs[bounds[:-1]]
 
 
+def _point_energy(err: torch.Tensor) -> torch.Tensor:
+    """Per-block sum of squares of the (n, k) sampled-point errors in the
+    order and roundings of the reference's compiled reduction on the CPU:
+    the 3 or 9 points of a 1-D or 2-D block one after another with FMAs;
+    the 16 of a 3-D block as 8 lanes, point i + 8 squared onto point i's
+    square with an FMA, then the lanes halved pairwise (i + 4, i + 2,
+    i + 1)."""
+    n, k = err.shape
+    if k != 16:
+        s = torch.zeros(n, dtype=torch.float32, device=err.device)
+        for j in range(k):
+            s = _fma32(err[:, j], err[:, j], s)
+        return s
+    lo, hi = err[:, :8], err[:, 8:]
+    lanes = _fma32(hi, hi, lo * lo)
+    lanes = lanes[:, :4] + lanes[:, 4:]
+    lanes = lanes[:, :2] + lanes[:, 2:]
+    return lanes[:, 0] + lanes[:, 1]
+
+
 def estimate_zfp_many(
     blocks: torch.Tensor,
     seg: torch.Tensor,
@@ -452,8 +551,11 @@ def estimate_zfp_many(
     per-field Estimate tensors of shape (n_fields,).
 
     mode='exact' — the exact coder bit counter (31-plane loop);
-    mode='model' — the closed-form `block_bits` coder model (one pass).
-    Per-block work equals the single-field path's; only the final means
+    mode='model' — the closed-form `block_bits` coder model (one pass);
+    mode='psnr'  — no bit count at all (`bitrate` is None), for the
+    controller's PSNR-only sweeps: the reference's compiled sweep drops
+    the unused coder as dead code, but an eager one would still run it.
+    The PSNR is the same in every mode. Per-block work equals the single-field path's; only the final means
     become boundary-windowed prefix sums (bits in int32, the error energy
     normalized by each field's vr^2 before its prefix sum).
     """
@@ -465,15 +567,19 @@ def estimate_zfp_many(
     bounds = bounds.to(device=dev, dtype=torch.int64)
     n_s = blocks.shape[0]
     mx = torch.clamp_min(torch.amax(blocks.reshape(n_s, -1).abs(), dim=1), 1e-30)
-    e = to_int_saturating(torch.ceil(torch.log2(mx)))
+    e = to_int_saturating(torch.ceil(_xla_log2(mx)))
     norm = blocks * _exp2(-e).reshape((-1,) + (1,) * nd)
     coeffs = block_transform_nd(norm, bot_matrix(transform), nd)
     gain_n = bot_linf_gain(transform) ** nd
     step = _plane_step(eb_f.to(device=dev, dtype=torch.float32)[seg], e, gain_n)
     if mode == "exact":
         bits_blk = exact_coder_bits_blocks(coeffs, step)  # integer-valued
-    else:
+    elif mode == "model":
         bits_blk = block_bits(coeffs, step)  # integer-valued
+    elif mode == "psnr":
+        bits_blk = None
+    else:
+        raise ValueError(f"unknown estimate_zfp_many mode {mode!r}")
     # PSNR from the EC sample points, as in estimate_zfp
     sel = torch.as_tensor(np.flatnonzero(_ec_point_mask(nd).reshape(-1)), device=dev)
     s = step.reshape(-1, 1).to(torch.float32)
@@ -482,14 +588,15 @@ def estimate_zfp_many(
     rec = torch.sign(co) * torch.where(m > 0, (m + 0.5) * s, torch.zeros_like(m))
     scale = _exp2(e).reshape(-1, 1)
     vr32 = torch.clamp_min(vr_f.to(device=dev, dtype=torch.float32), 1e-30)
-    err2n_blk = torch.sum(torch.square((co - rec) * scale), dim=1) / torch.square(vr32[seg])
-    bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
+    err2n_blk = _point_energy((co - rec) * scale) / torch.square(vr32[seg])
     err2n_f = field_sums(err2n_blk, bounds)
     nblk_f = (bounds[1:] - bounds[:-1]).to(torch.float32)
-    bitrate = bits_f / torch.clamp_min(nblk_f * bsz, 1.0)
+    bitrate = None
+    if bits_blk is not None:
+        bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
+        bitrate = bits_f / torch.clamp_min(nblk_f * bsz, 1.0)
     mse_over_vr2 = err2n_f / torch.clamp_min(nblk_f * len(sel), 1.0)
-    psnr = -10.0 * torch.log10(torch.clamp_min(mse_over_vr2, 1e-60))
-    return Estimate(bitrate=bitrate, psnr=psnr)
+    return Estimate(bitrate=bitrate, psnr=_neg10_log10(mse_over_vr2))
 
 
 def estimate_sz_many(
@@ -551,7 +658,7 @@ def estimate_sz_many(
     p = counts / torch.clamp_min(n_samp_f[fid], 1.0)
     # per-run PDF mass terms: |p log2 p| <= ~0.53, so the f32 prefix sum
     # stays accurate
-    plogp = torch.where(first, p * torch.log2(torch.clamp_min(p, 1e-30)), 0.0)
+    plogp = torch.where(first, p * _xla_log2(torch.clamp_min(p, 1e-30)), 0.0)
     firsti = first.to(torch.int32)
     icols = torch.stack(
         [

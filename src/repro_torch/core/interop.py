@@ -10,6 +10,9 @@ this package stays free of JAX) and return the port's types:
   can be compared byte for byte;
 * `policy_from_spec(spec)` — a reference `Policy.spec()` dict -> the
   port's `Policy`;
+* `target_solution_from_reference(d)` — ``dataclasses.asdict`` of a
+  reference `TargetSolution` -> the port's `TargetSolution`, so a
+  reference solve can drive the port's encoders;
 * `decision_cache_from_manifest(record)` — a reference
   `DecisionCache.to_manifest()` record -> the port's `DecisionCache`.
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 from dataclasses import fields
 from typing import Mapping
 
+from .controller import TargetSolution
 from .decision_cache import DecisionCache
 from .policy import Policy
 from .selector import Selection
@@ -29,6 +33,21 @@ _FLOAT_FIELDS = tuple(f.name for f in fields(Selection) if f.name != "codec")
 def selection_from_reference(d: Mapping) -> Selection:
     """The port's `Selection` for a reference decision given as plain values."""
     return Selection(str(d["codec"]), *(float(d[k]) for k in _FLOAT_FIELDS))
+
+
+def target_solution_from_reference(d: Mapping) -> TargetSolution:
+    """The port's `TargetSolution` for a reference solve given as plain
+    values (its `selection` a mapping of `Selection` fields)."""
+    met = d.get("est_metric")
+    return TargetSolution(
+        selection=selection_from_reference(d["selection"]),
+        mode=str(d["mode"]),
+        target=float(d["target"]),
+        est_psnr=float(d["est_psnr"]),
+        est_bitrate=float(d["est_bitrate"]),
+        on_target=bool(d["on_target"]),
+        est_metric=None if met is None else float(met),
+    )
 
 
 def policy_from_spec(spec: Mapping) -> Policy:

@@ -4,11 +4,11 @@ Port of `repro.core.policy`. A `Policy` is the frozen, validated contract
 a caller holds for a field:
 
     Policy.fixed_accuracy(eb_rel=1e-4)      # the paper's bound-centric mode
-    Policy.fixed_psnr(60.0)                 # target modes: declared here;
-    Policy.fixed_ratio(8.0)                 #   compressing under them needs
-    Policy.fixed_ssim(0.98)                 #   the quality-target controller,
-    Policy.fixed_correlation(0.999)         #   which this port does not
-    Policy.fixed_ks(0.05)                   #   carry yet
+    Policy.fixed_psnr(60.0)                 # the target modes, solved by
+    Policy.fixed_ratio(8.0)                 #   the quality-target controller
+    Policy.fixed_ssim(0.98)                 #   (core/controller.py)
+    Policy.fixed_correlation(0.999)
+    Policy.fixed_ks(0.05)
     Policy.raw()                            # store verbatim (exact bytes)
 
 plus the estimator sampling rate (`r_sp`) and a codec allowlist (`codecs`,

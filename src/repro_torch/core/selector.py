@@ -202,8 +202,8 @@ def select_many(
         if policy.mode != "fixed_accuracy":
             raise ValueError(
                 f"select_many takes a fixed_accuracy policy, got {policy.mode!r} "
-                "(the target modes need controller.solve_many: fixed_psnr, "
-                "fixed_ratio, fixed_ssim, fixed_correlation, fixed_ks)"
+                "(solve the target modes with repro_torch.core.solve_many: "
+                "fixed_psnr, fixed_ratio, fixed_ssim, fixed_correlation, fixed_ks)"
             )
         if any(v is not None for v in (eb_abs, eb_rel, r_sp, codecs)):
             raise ValueError("pass either policy= or eb_abs/eb_rel/r_sp/codecs, not both")

@@ -479,3 +479,62 @@ def test_zfp_encode_peak_below_the_wide_emitter(cuda_device):
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert cf.codec == "zfp"
     assert peak < ZFP_PEAK_GIB_BEFORE, peak
+
+
+TARGET_POLICIES = {
+    "psnr60": Policy.fixed_psnr(60.0),
+    "ratio8": Policy.fixed_ratio(8.0),
+    "ssim0.97": Policy.fixed_ssim(0.97),
+    "corr0.995": Policy.fixed_correlation(0.995),
+    "ks0.1": Policy.fixed_ks(0.1),
+    "psnr60-zfp": Policy.fixed_psnr(60.0, codecs=("zfp",)),
+}
+
+
+@pytest.mark.parametrize("mode_id", list(TARGET_POLICIES))
+def test_solve_many_on_card_equals_cpu(cuda_device, mode_id):
+    """The quality-target solve on the card against the port's own on the
+    CPU: codec and on_target equal, eb to 1e-4 relative, est_bitrate to
+    5e-3 bits/value (the tolerances of the CPU parity suite)."""
+    from repro_torch.core import solve_many
+
+    arrs = list(_pytree_fields().values())
+    pol = TARGET_POLICIES[mode_id]
+    on_card = solve_many(arrs, pol, device=cuda_device)
+    on_cpu = solve_many(arrs, pol, device="cpu")
+    for g, w in zip(on_card, on_cpu):
+        assert (g.selection.codec, g.on_target) == (w.selection.codec, w.on_target)
+        assert g.selection.eb_abs == pytest.approx(w.selection.eb_abs, rel=1e-4)
+        assert g.selection.eb_sz == pytest.approx(w.selection.eb_sz, rel=1e-4)
+        assert g.est_bitrate == pytest.approx(w.est_bitrate, abs=5e-3)
+        if w.est_metric is not None:
+            assert g.est_metric == pytest.approx(w.est_metric, abs=1e-4)
+
+
+def _psnr(x, y):
+    x = np.asarray(x, np.float64)
+    mse = float(np.mean((x - np.asarray(y, np.float64).reshape(x.shape)) ** 2))
+    return 10.0 * np.log10(float(x.max() - x.min()) ** 2 / mse)
+
+
+@pytest.mark.parametrize("shape", [(384, 768), (32, 96, 96)])
+def test_compress_fixed_psnr_on_card(cuda_device, shape):
+    """`compress(x, Policy.fixed_psnr(60), device_encode=True)` on the card:
+    the SZ field's codes come from K1 (2-D) or K2 (3-D), the decision is the
+    CPU's, and the decoded field lands within 1 dB of 60 dB."""
+    from benchmarks.common import atm_suite, hurricane_suite
+
+    x = (next(iter(atm_suite(1, size=shape).values())) if len(shape) == 2
+         else hurricane_suite(3, size=shape)["U_2"])
+    pol = Policy.fixed_psnr(60.0)
+    lorenzo.reset_launches()
+    cf = compress(x, pol, device_encode=True, device=cuda_device)
+    torch.cuda.synchronize()
+    assert cf.codec == "sz"
+    assert lorenzo.LAUNCHES[_kernel_name(len(shape))] == 1
+    cpu = compress(x, pol, device_encode=True, device="cpu")
+    assert cpu.codec == cf.codec
+    assert cpu.selection.eb_sz == pytest.approx(cf.selection.eb_sz, rel=1e-4)
+    y = decompress(cf, device=cuda_device)
+    assert y.device.type == "cuda"
+    assert abs(_psnr(x, y.cpu().numpy()) - 60.0) <= 1.0
