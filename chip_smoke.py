@@ -858,8 +858,8 @@ def phase_targets(torch, np, dev, atm, hurricane):
     """`solve_many` on the 17 paper-sized fields under each target mode
     (host clock ending in a synchronize, after a warm-up solve of two small
     fields per mode), beside `select_many` on the same fields; the metric
-    modes' one host copy of the sampled blocks. Returns the fixed_ratio
-    solutions by field name."""
+    modes' one host copy of the sampled blocks and their host statistics.
+    Returns the solutions of each mode by field name."""
     from repro_torch.core import Policy, select_many, solve_many
     from repro_torch.core import controller as ctl
 
@@ -879,7 +879,7 @@ def phase_targets(torch, np, dev, atm, hurricane):
     by_mode = {}
     for mode, target in TARGET_MODES:
         pol = _target_policy(mode, target)
-        ctl.HOST_COPY.update(bytes=0, ms=0.0)
+        ctl.HOST_WORK.update(copy_bytes=0, copy_ms=0.0, stats_ms=0.0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sols = solve_many(arrs, pol, device=dev)
@@ -890,15 +890,16 @@ def phase_targets(torch, np, dev, atm, hurricane):
             check(math.isfinite(s.est_bitrate) and s.selection.eb_abs > 0,
                   f"{mode} {name}: bound {s.selection.eb_abs}, rate {s.est_bitrate}")
         metric = mode in ctl.qual.MODE_METRIC
-        check((ctl.HOST_COPY["bytes"] > 0) == metric, f"{mode}: host copy {ctl.HOST_COPY}")
+        check((ctl.HOST_WORK["copy_bytes"] > 0) == metric, f"{mode}: host work {ctl.HOST_WORK}")
         codecs = {c: sum(s.selection.codec == c for s in sols) for c in ("sz", "zfp", "raw")}
         on = sum(bool(s.on_target) for s in sols)
         check(on >= 1, f"{mode}: no field on target")
         log("targets", json.dumps(dict(
             mode=mode, target=target, fields=len(arrs), solve_ms=solve_ms,
             select_many_ms=select_ms, codecs=codecs, on_target=on,
-            host_copy_ms=ctl.HOST_COPY["ms"] if metric else None,
-            host_copy_mb=ctl.HOST_COPY["bytes"] / 1e6 if metric else None)))
+            host_copy_ms=ctl.HOST_WORK["copy_ms"] if metric else None,
+            host_copy_mb=ctl.HOST_WORK["copy_bytes"] / 1e6 if metric else None,
+            host_stats_ms=ctl.HOST_WORK["stats_ms"] if metric else None)))
         by_mode[mode] = dict(zip(fields, sols))
     return by_mode
 

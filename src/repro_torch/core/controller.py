@@ -50,8 +50,8 @@ from .selector import (
     _degenerate_selection,
     _fold_ndim,
     _max_batch_blocks,
-    _next_pow2,
     _numel,
+    _pack_blocks,
     select_many,
 )
 
@@ -95,9 +95,10 @@ DEFAULT_ROUNDS = {
     "fixed_ks": 3,
 }
 
-#: the metric modes' one copy of each member's halo blocks to the host
-#: (their statistics are float64 numpy): bytes and wall ms, accumulated
-HOST_COPY = {"bytes": 0, "ms": 0.0}
+#: the metric modes' host work, accumulated: the one copy of each member's
+#: halo blocks to the host (bytes, wall ms) and the float64 statistics and
+#: metric inversion on them (wall ms)
+HOST_WORK = {"copy_bytes": 0, "copy_ms": 0.0, "stats_ms": 0.0}
 
 
 @dataclass
@@ -206,41 +207,22 @@ class _Member:
 
 
 class _Sweep:
-    """One packed batch (the layout of `selector._select_batch`: blocks
-    padded to a power of two, fields to a power of two above their count)
+    """One packed batch (`selector._pack_blocks`, as `select_many` packs it)
     exposing `full` / `rate` / `light` candidate sweeps. Inputs are
     (n_cand, n_real_fields) per-field bounds (eb for ZFP, bin size delta
     for SZ); outputs are (n_cand, n_real_fields) float32 arrays."""
 
-    def __init__(self, nd: int, members: list[_Member], transform: str):
-        self.nd, self.transform = nd, transform
-        dev = members[0].blocks.device
-        counts = [len(m.blocks) for m in members]
-        n_real_blocks, self.n_real_fields = sum(counts), len(members)
-        self.n_blocks = _next_pow2(n_real_blocks)
-        self.n_fields = _next_pow2(self.n_real_fields + 1)
-        pad = self.n_blocks - n_real_blocks
-        halo = torch.cat(
-            [m.blocks for m in members]
-            + [torch.zeros((pad,) + tuple(members[0].blocks.shape[1:]),
-                           dtype=torch.float32, device=dev)]
-        )
-        seg = torch.repeat_interleave(
-            torch.arange(self.n_real_fields + 1, dtype=torch.int32),
-            torch.tensor(counts + [pad]),
-        )
-        seg[n_real_blocks:] = self.n_fields - 1
-        bounds = np.zeros(self.n_fields + 1, np.int32)
-        bounds[1 : self.n_real_fields + 1] = np.cumsum(counts)
-        bounds[self.n_real_fields + 1 :] = n_real_blocks
-        bounds[self.n_fields] = self.n_blocks
+    def __init__(self, members: list[_Member], transform: str):
+        self.transform = transform
+        halo, seg, bounds, self.n_fields = _pack_blocks([m.blocks for m in members])
+        self.n_real_fields = len(members)
         vr_p = np.ones(self.n_fields, np.float32)
         vr_p[: self.n_real_fields] = [m.vr for m in members]
         size_p = np.ones(self.n_fields, np.float32)
         size_p[: self.n_real_fields] = [m.size for m in members]
+        dev = halo.device
         self._args = (
-            halo, seg.to(dev), torch.from_numpy(bounds).to(dev),
-            torch.from_numpy(vr_p).to(dev), torch.from_numpy(size_p).to(dev),
+            halo, seg, bounds, torch.from_numpy(vr_p).to(dev), torch.from_numpy(size_p).to(dev)
         )
 
     def _run(self, eb_c, delta_c, kind: str):
@@ -542,16 +524,6 @@ def _solve_fixed_ratio(
     return out
 
 
-def _host_blocks(batch: list[_Member]) -> list[np.ndarray]:
-    """Each member's halo blocks on the host, copied once (counted in
-    `HOST_COPY`)."""
-    t0 = time.perf_counter()
-    host = [m.blocks.cpu().numpy() for m in batch]
-    HOST_COPY["ms"] += (time.perf_counter() - t0) * 1e3
-    HOST_COPY["bytes"] += sum(h.nbytes for h in host)
-    return host
-
-
 def _solve_fixed_metric(
     sweep: _Sweep, refine: _Sweep, batch: list[_Member], nd: int,
     vr: np.ndarray, mode: str, target: float, rounds: int, r_sp: float,
@@ -563,12 +535,17 @@ def _solve_fixed_metric(
     into a per-field equivalent-PSNR target, the fixed-PSNR solve on those
     targets, and the achieved metric read back off the solved PSNR."""
     metric = qual.MODE_METRIC[mode]
-    stats = [
-        qual.stats_from_blocks(b, nd, m.vr) for b, m in zip(_host_blocks(batch), batch)
-    ]
+    t0 = time.perf_counter()
+    host = [m.blocks.cpu().numpy() for m in batch]  # one copy a member
+    t1 = time.perf_counter()
+    stats = [qual.stats_from_blocks(b, nd, m.vr) for b, m in zip(host, batch)]
     psnr_t = np.asarray(
         [qual.equivalent_psnr(metric, target, s) for s in stats], np.float64
     )
+    HOST_WORK["copy_bytes"] += sum(h.nbytes for h in host)
+    HOST_WORK["copy_ms"] += (t1 - t0) * 1e3
+    HOST_WORK["stats_ms"] += (time.perf_counter() - t1) * 1e3
+    del host
     solved = _solve_fixed_psnr(
         sweep, refine, vr, psnr_t, rounds, r_sp, allowed, warm=warm
     )
@@ -755,11 +732,10 @@ def _solve_groups(
                 blocks += len(members[hi].blocks)
                 hi += 1
             batch = members[lo:hi]
-            sweep = _Sweep(nd, batch, transform)
+            sweep = _Sweep(batch, transform)
             # refinement probes run on a strided sub-sample of the blocks
             # in hand; the final pricing eval uses the full sample
             refine = _Sweep(
-                nd,
                 [_Member(m.idx, m.blocks[::REFINE_STRIDE], m.vr, m.size) for m in batch],
                 transform,
             )
@@ -819,7 +795,7 @@ def estimate_curves(
         raise ValueError("degenerate field has no estimator curve")
     starts = est.block_starts(tuple(view.shape), r_sp)
     member = _Member(0, est.gather_blocks(view, starts, halo=True), vr, _numel(view))
-    sweep = _Sweep(view.ndim, [member], transform)
+    sweep = _Sweep([member], transform)
     b = np.asarray(bounds, np.float32).reshape(-1, 1)
     br_sz, psnr_sz, br_zfp, psnr_zfp, psnr_meas = sweep.full(b, b)
     return dict(

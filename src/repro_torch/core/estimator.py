@@ -555,8 +555,10 @@ def estimate_zfp_many(
     mode='psnr'  — no bit count at all (`bitrate` is None), for the
     controller's PSNR-only sweeps: the reference's compiled sweep drops
     the unused coder as dead code, but an eager one would still run it.
-    The PSNR is the same in every mode. Per-block work equals the single-field path's; only the final means
-    become boundary-windowed prefix sums (bits in int32, the error energy
+    The PSNR is the same in every mode, and bit for bit the reference's
+    (its log and its block sums' order, `_point_energy`). Per-block work
+    equals the single-field path's; only the final means become
+    boundary-windowed prefix sums (bits in int32, the error energy
     normalized by each field's vr^2 before its prefix sum).
     """
     nd = blocks.ndim - 1

@@ -305,6 +305,32 @@ def _batched_estimates(halo, seg, bounds, eb_f, vr_f, size_f, transform: str):
     return e_sz.bitrate, e_zfp.bitrate, e_zfp.psnr, eb_sz
 
 
+def _pack_blocks(blocks: list[torch.Tensor]):
+    """Pack fields' halo blocks into one batch as the reference pads it, in
+    power-of-two buckets: blocks padded with zeros, fields to a power of two
+    above their count, the padding blocks in the last (dummy) field slot.
+    Blocks of field f live at [bounds[f], bounds[f+1]); empty padded slots
+    collapse. Returns (halo, seg, bounds, n_fields) on the blocks' device."""
+    dev = blocks[0].device
+    counts = [len(b) for b in blocks]
+    n_real_blocks, n_real_fields = sum(counts), len(blocks)
+    n_blocks = _next_pow2(n_real_blocks)
+    n_fields = _next_pow2(n_real_fields + 1)
+    pad = n_blocks - n_real_blocks
+    halo = torch.cat(
+        blocks + [torch.zeros((pad,) + tuple(blocks[0].shape[1:]), dtype=torch.float32, device=dev)]
+    )
+    seg = torch.repeat_interleave(
+        torch.arange(n_real_fields + 1, dtype=torch.int32), torch.tensor(counts + [pad])
+    )
+    seg[n_real_blocks:] = n_fields - 1
+    bounds = np.zeros(n_fields + 1, np.int32)
+    bounds[1 : n_real_fields + 1] = np.cumsum(counts)
+    bounds[n_real_fields + 1 :] = n_real_blocks
+    bounds[n_fields] = n_blocks
+    return halo, seg.to(dev), torch.from_numpy(bounds).to(dev), n_fields
+
+
 def _select_batch(
     nd: int,
     members: list[Member],
@@ -313,36 +339,14 @@ def _select_batch(
     transform: str,
     codecs: tuple[str, ...],
 ) -> None:
-    dev = members[0][1].device
-    counts = [len(m[1]) for m in members]
-    n_real_blocks, n_real_fields = sum(counts), len(members)
-    # power-of-two buckets, as the reference pads them; padding blocks are
-    # zeros in a dummy field slot, the last
-    n_blocks = _next_pow2(n_real_blocks)
-    n_fields = _next_pow2(n_real_fields + 1)
-    pad = n_blocks - n_real_blocks
-    halo = torch.cat(
-        [m[1] for m in members] + [torch.zeros((pad,) + tuple(members[0][1].shape[1:]),
-                                               dtype=torch.float32, device=dev)]
-    )
-    seg = torch.repeat_interleave(
-        torch.arange(n_real_fields + 1, dtype=torch.int32),
-        torch.tensor(counts + [pad]),
-    )
-    seg[n_real_blocks:] = n_fields - 1
-    # blocks of field f live at [bounds[f], bounds[f+1]); empty padded slots
-    # collapse, the last slot absorbs the padding blocks
-    bounds = np.zeros(n_fields + 1, np.int32)
-    bounds[1 : n_real_fields + 1] = np.cumsum(counts)
-    bounds[n_real_fields + 1 :] = n_real_blocks
-    bounds[n_fields] = n_blocks
+    halo, seg, bounds, n_fields = _pack_blocks([m[1] for m in members])
 
     def padf(v, fill):
-        return torch.tensor(v + [fill] * (n_fields - n_real_fields), dtype=torch.float32,
-                            device=dev)
+        return torch.tensor(v + [fill] * (n_fields - len(members)), dtype=torch.float32,
+                            device=halo.device)
 
     out = _batched_estimates(
-        halo, seg.to(dev), torch.from_numpy(bounds).to(dev),
+        halo, seg, bounds,
         padf([m[2] for m in members], 1.0), padf([m[3] for m in members], 1.0),
         padf([float(m[4]) for m in members], 1.0), transform,
     )

@@ -102,11 +102,20 @@ def test_raw_policy_and_dtype_restore():
 @pytest.mark.parametrize("mode", ["fixed_psnr", "fixed_ratio", "fixed_ssim",
                                   "fixed_correlation", "fixed_ks"])
 def test_target_modes_are_declared_but_not_ported(mode):
+    """Each target mode's policy is the reference's, and (now that the
+    controller is ported) `compress` under it takes the reference's
+    decision and decodes to the field's shape and dtype."""
     target = {"fixed_psnr": 60.0, "fixed_ratio": 8.0}.get(mode, 0.5)
     pol = getattr(policy.Policy, mode)(target)
-    assert pol.spec() == getattr(R.Policy, mode)(target).spec()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.compress(_field((64, 64), 4), pol, device="cpu")
+    ref_pol = getattr(R.Policy, mode)(target)
+    assert pol.spec() == ref_pol.spec()
+    x = _field((64, 64), 4)
+    cf = api.compress(x, pol, device="cpu")
+    want = R.compress(x, ref_pol)
+    assert cf.codec == want.codec
+    assert cf.selection.eb_abs == pytest.approx(want.selection.eb_abs, rel=1e-4)
+    y = selector.decompress(cf, device="cpu")
+    assert tuple(y.shape) == x.shape and y.dtype == torch.float32
 
 
 def test_policy_specs_and_sets_match_reference():

@@ -13,6 +13,7 @@ bits/value, a finite est_psnr to 1e-3 dB, est_metric to 1e-4. fixed_ratio is
 held to the live `repro.core.solve_many`, not to tests/golden/fixed_ratio.json.
 """
 
+import dataclasses
 import functools
 import math
 
@@ -21,13 +22,14 @@ import pytest
 
 import repro.core as R
 from repro.core import controller as r_ctl
-from repro.core import quality as r_qual
 from repro.core.policy import Policy as RPolicy
 from repro.core.policy import PolicySet as RPolicySet
-from repro_torch.core import Policy, PolicySet, compress, compress_pytree, decompress
+from repro_torch.core import CompressedField, Policy, PolicySet, compress, compress_pytree, decompress
 from repro_torch.core import controller as p_ctl
-from repro_torch.core import decompress_pytree, estimate_curves, interop, solve, solve_many
+from repro_torch.core import decompress_pytree, encode_with_selection, estimate_curves, interop
+from repro_torch.core import select_many, solve, solve_many
 from repro_torch.core import quality as p_qual
+from repro_torch.core.decision_cache import DecisionCache
 from test_select_many import _field_suite
 from test_torch_select import FIELDS
 
@@ -251,8 +253,6 @@ def test_legacy_mode_string_solves_the_same():
 
 
 def test_warm_cache_raises_naming_item_8():
-    from repro_torch.core.decision_cache import DecisionCache
-
     x = FIELDS["atm/ATM_00"]
     with pytest.raises(NotImplementedError, match="item 8"):
         solve_many([x], Policy.fixed_psnr(60.0), cache=DecisionCache(), names=["a"], device="cpu")
@@ -260,8 +260,6 @@ def test_warm_cache_raises_naming_item_8():
         compress_pytree({"a": x}, Policy.fixed_psnr(60.0), cache=DecisionCache(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         compress_pytree({"a": x}, Policy.fixed_psnr(60.0), sharded=True, device="cpu")
-    from repro_torch.core import select_many
-
     with pytest.raises(ValueError, match="repro_torch.core.solve_many"):
         select_many([x], policy=Policy.fixed_psnr(60.0), device="cpu")
 
@@ -269,8 +267,6 @@ def test_warm_cache_raises_naming_item_8():
 def test_target_solution_from_reference_drives_port_encoder():
     """A reference solve, carried across as plain values, encodes in the
     port to the reference's own bytes."""
-    import dataclasses
-
     x = FIELDS["hur/P_5"]
     sol = R.solve(x, RPolicy.fixed_ssim(0.97))
     port_sol = interop.target_solution_from_reference(dataclasses.asdict(sol))
@@ -278,8 +274,6 @@ def test_target_solution_from_reference_drives_port_encoder():
         interop.selection_from_reference(dataclasses.asdict(sol.selection)), sol.mode,
         sol.target, sol.est_psnr, sol.est_bitrate, sol.on_target, sol.est_metric,
     )
-    from repro_torch.core import encode_with_selection
-
     cf = encode_with_selection(x, port_sol.selection, device="cpu")
     assert cf.data == R.encode_with_selection(x, sol.selection).data
 
@@ -343,19 +337,15 @@ def test_compress_matches_reference_and_meets_contract(mode_id, device_encode):
         rec_r = np.asarray(R.decompress(R.CompressedField(
             got.codec, got.data, got.shape, got.dtype, want.selection)))
         np.testing.assert_array_equal(rec_r.reshape(x.shape), rec_p.reshape(x.shape))
-        rec_x = decompress(p_ctl_cf(want), device="cpu").numpy()
+        rec_x = decompress(_port_field(want), device="cpu").numpy()
         np.testing.assert_array_equal(rec_x.reshape(x.shape),
                                       np.asarray(R.decompress(want)).reshape(x.shape))
         on = solve(x, p_pol, device="cpu").on_target
         _assert_contract(p_pol, x, rec_p, len(got.data), on)
 
 
-def p_ctl_cf(cf):
+def _port_field(cf):
     """A reference `CompressedField` as the port's (plain values)."""
-    from repro_torch.core import CompressedField
-
-    import dataclasses
-
     sel = interop.selection_from_reference(dataclasses.asdict(cf.selection))
     return CompressedField(cf.codec, cf.data, tuple(cf.shape), cf.dtype, sel)
 

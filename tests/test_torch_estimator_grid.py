@@ -8,6 +8,11 @@ its divisions by constants into multiplications; the controller's seed
 calls it eagerly, op by op. Both forms end in the float32 `10.0 ** y`,
 which is glibc's `powf` and is one ulp off the nearest float at some grid
 points (81.40, 99.75 and 131.10 dB among them).
+
+The controller's secant amplifies an ulp in any estimate it steers by, so
+the other float32 habits of the reference's compiled estimators are held
+bit for bit here too: XLA's own log (and log2, and the PSNR's folded
+`-10 log10`), and the order of the ZFP sample points' sum of squares.
 """
 
 import jax
@@ -101,3 +106,62 @@ def test_the_three_grid_points_the_parent_missed():
     pow10 = (10.0 ** y.astype(np.float64)).astype(np.float32)
     rounded_once = np.float32(np.sqrt(12.0)) * pow10
     assert (_bits(rounded_once) != _bits(want)).all()
+
+
+# ---------------------------------------------------------------------------
+# The other float32 habits of the reference's compiled estimators
+# ---------------------------------------------------------------------------
+
+
+def _log_inputs():
+    rng = np.random.default_rng(11)
+    return np.concatenate([
+        np.exp(rng.uniform(-87.0, 88.0, 400_000)), rng.uniform(0.0, 1.0, 100_000),
+        2.0 ** np.arange(-126, 128), np.arange(1, 70_000),
+        (2.0 ** np.arange(-60, 60)) * (1 + 2.0**-23), (2.0 ** np.arange(-60, 60)) * (1 - 2.0**-24),
+        [0.0, -0.0, np.inf, -1.0, np.nan, 1e-40, 3.4e38],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["log", "log2", "neg10_log10"])
+def test_xla_log_family(name):
+    """XLA's float32 log (its own polynomial, with FMAs), log2 and the
+    folded `-10 * log10(max(x, 1e-60))` of the PSNR estimates, bit for bit
+    on 600k values, powers of two and their neighbours, and specials."""
+    x = _log_inputs()
+    ref_fn, port_fn = {
+        "log": (jnp.log, p_est._xla_log),
+        "log2": (jnp.log2, p_est._xla_log2),
+        "neg10_log10": (lambda v: -10.0 * jnp.log10(jnp.maximum(v, 1e-60)), p_est._neg10_log10),
+    }[name]
+    want = np.asarray(jax.jit(ref_fn)(jnp.asarray(x)))
+    got = port_fn(torch.from_numpy(x)).numpy()
+    same = (want == got) | (np.isnan(want) & np.isnan(got))
+    assert same.all(), f"differs at {x[~same][:8]}"
+
+
+def _packed(nd, seed):
+    rng = np.random.default_rng(seed)
+    sizes = [700, 1300, 64, 2100]
+    blocks = [np.cumsum(rng.standard_normal((n,) + (4,) * nd), axis=-1) * s
+              for n, s in zip(sizes, (1.0, 30.0, 1e-3, 5.0))]
+    seg = np.concatenate([np.full(n, f, np.int32) for f, n in enumerate(sizes)])
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    vr = np.array([np.ptp(b) for b in blocks], np.float32)
+    return np.concatenate(blocks).astype(np.float32), seg, bounds, vr
+
+
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_zfp_psnr_bit_for_bit_in_every_mode(nd):
+    """`estimate_zfp_many`'s PSNR equals the reference's compiled one bit
+    for bit at 40 bounds, in the PSNR-only mode as in 'exact' and 'model'."""
+    blocks, seg, bounds, vr = _packed(nd, nd)
+    ref = jax.jit(lambda *a: r_est.estimate_zfp_many(*a).psnr)
+    args = [torch.from_numpy(a) for a in (blocks, seg, bounds)]
+    for rel in np.logspace(-7, -1, 40):
+        eb = (rel * vr).astype(np.float32)
+        want = np.asarray(ref(blocks, seg, bounds, eb, vr))
+        for mode in ("psnr", "exact", "model"):
+            e = p_est.estimate_zfp_many(*args, torch.from_numpy(eb), torch.from_numpy(vr), mode=mode)
+            assert (e.bitrate is None) == (mode == "psnr")
+            np.testing.assert_array_equal(e.psnr.numpy(), want, err_msg=f"{mode} at {rel}")
