@@ -64,7 +64,8 @@ turns (parent, change, change, parent) to compare them on one card.
 
     python3 chip_smoke.py --lorenzo-times [--src OTHER_CHECKOUT/src]
 
-does the same for K1/K2 (`lorenzo_times`).
+does the same for K1/K2 (`lorenzo_times`), and `--kv-times` for the KV
+page tier's evict and restore (`kv_times`).
 """
 
 from __future__ import annotations
@@ -621,9 +622,11 @@ def phase_cpu_vs_card(torch, np, dev):
     log("cpu-vs-card", f"{len(fields)} fields, {identical} decisions bit-identical")
 
 
-def phase_kv(torch, np, dev):
+def phase_kv(torch, np, dev, times: dict | None = None):
     """The KV page tier at phi4-mini-3.8b's full width. Returns the launch
-    counts of K6 (the eviction) and K5 (the flat pages)."""
+    counts of K6 (the eviction) and K5 (the flat pages); fills `times` with
+    the evict, re-evict and restore medians and the evict's step medians
+    (host ms)."""
     from repro_torch.core import device_encode as de
     from repro_torch.core.decision_cache import DecisionCache
     from repro_torch.core.policy import Policy, serving_policies
@@ -727,8 +730,8 @@ def phase_kv(torch, np, dev):
         marks.append(time.perf_counter())
         for key, a, b in zip(steps, marks, marks[1:]):
             steps[key].append((b - a) * 1e3)
-    log("kv", "evict steps, median ms over 32 stacks: " + json.dumps(
-        {k: statistics.median(v) for k, v in steps.items()}))
+    step_ms = {k: statistics.median(v) for k, v in steps.items()}
+    log("kv", "evict steps, median ms over 32 stacks: " + json.dumps(step_ms))
 
     raw_bytes = N_LAYERS * PAGE_TOKENS * width * 2
     ratios = [raw_bytes / cp.nbytes for cp in stored.values()]
@@ -742,6 +745,9 @@ def phase_kv(torch, np, dev):
         cache=cache.stats(),
     )
     log("kv", json.dumps(summary))
+    if times is not None:
+        times.update({k: summary[k] for k in ("evict_ms_median", "reevict_ms_median",
+                                              "restore_ms_median")}, steps=step_ms)
 
     # one layer's K of the request as a flat page, through bot_compress_kv (K5)
     flat = arenas["k"][:, 1:].reshape(N_LAYERS, REQUEST_TOKENS, width)
@@ -1228,6 +1234,14 @@ def bot_times(torch, np, dev) -> dict:
     return out
 
 
+def kv_times(torch, np, dev) -> dict:
+    """The KV phase alone (`phase_kv`): its evict, re-evict and restore
+    medians and the evict's step medians, host ms."""
+    out = {}
+    phase_kv(torch, np, dev, out)
+    return out
+
+
 def lorenzo_times(torch, np, dev) -> dict:
     """Device ms of K1 and K2 at the main path's shapes and at one small
     shape, each after a check that the kernel equals its plain version
@@ -1260,6 +1274,9 @@ def main() -> int:
     parser.add_argument("--zfp-peak", action="store_true",
                         help="only print the peak device memory of the ZFP device encode "
                         "on the main path's ZFP field (zfp_peak) as JSON")
+    parser.add_argument("--kv-times", action="store_true",
+                        help="only run the KV phase and print its evict/restore times (kv_times) "
+                        "as JSON")
     parser.add_argument("--select-profile", action="store_true",
                         help="only time and profile select_many on the 17 paper-sized fields "
                         "(select_profile)")
@@ -1292,7 +1309,8 @@ def main() -> int:
         _build.load(name)
     log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
     for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times),
-                          (args.zfp_peak, zfp_peak), (args.select_profile, select_profile)):
+                          (args.zfp_peak, zfp_peak), (args.select_profile, select_profile),
+                          (args.kv_times, kv_times)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)

@@ -144,19 +144,21 @@ def _block_energy(err: torch.Tensor) -> torch.Tensor:
     into its own lane with FMAs, the running total riding in lane 0, and
     sums the lanes as (l0 + l2) + (l1 + l3)."""
     n = err.shape[0]
-    if err.ndim == 2:
-        s = torch.zeros(n, dtype=torch.float32, device=err.device)
+    e = err.double()
+    if e.ndim == 2:
+        s = torch.zeros_like(e[:, 0])
         for j in range(4):
-            s = est._fma32(err[:, j], err[:, j], s)
-        return s
-    planes = err.reshape(n, -1, 4, 4)
+            s = est._round32(torch.addcmul(s, e[:, j], e[:, j]))
+        return s.float()
+    planes = e.reshape(n, -1, 4, 4)
     s = torch.zeros(n, dtype=torch.float32, device=err.device)
     for p in range(planes.shape[1]):
-        lanes = torch.zeros(n, 4, dtype=torch.float32, device=err.device)
+        lanes = torch.zeros(n, 4, dtype=torch.float64, device=err.device)
         lanes[:, 0] = s
         for j in range(4):
-            e = planes[:, p, :, j]
-            lanes = est._fma32(e, e, lanes)
+            col = planes[:, p, :, j]
+            lanes = est._round32(torch.addcmul(lanes, col, col))
+        lanes = lanes.float()
         s = (lanes[:, 0] + lanes[:, 2]) + (lanes[:, 1] + lanes[:, 3])
     return s
 
@@ -184,12 +186,17 @@ def _sz_measured_psnr(nohalo, seg, bounds, delta_f, vr_f) -> torch.Tensor:
 
 def _eval_one(halo, seg, bounds, eb_f, delta_f, vr_f, size_f, transform: str, kind: str):
     """One candidate: ZFP at eb_f and SZ at bin size delta_f on the same
-    blocks. 'light' gives (psnr_zfp, psnr_sz_measured); 'rate' and 'full'
-    give (br_sz, psnr_sz, br_zfp, psnr_zfp, psnr_sz_measured), 'rate' with
-    the one-pass `block_bits` ZFP coder model, 'full' with the exact one."""
+    blocks. 'light' gives (psnr_zfp, psnr_sz_measured); 'rate' gives
+    (br_sz, br_zfp), ZFP's from the one-pass `block_bits` coder model;
+    'full' gives (br_sz, psnr_sz, br_zfp, psnr_zfp, psnr_sz_measured)."""
     nd = halo.ndim - 1
     nohalo = halo[(slice(None),) + (slice(1, None),) * nd]
-    zfp_mode = {"light": "psnr", "rate": "model", "full": "exact"}[kind]
+    if kind == "rate":
+        e_zfp = est.estimate_zfp_many(nohalo, seg, bounds, eb_f, vr_f, transform,
+                                      mode="model", psnr=False)
+        e_sz = est.estimate_sz_many(halo, seg, bounds, delta_f, vr_f, size_f)
+        return e_sz.bitrate, e_zfp.bitrate
+    zfp_mode = "psnr" if kind == "light" else "exact"
     e_zfp = est.estimate_zfp_many(nohalo, seg, bounds, eb_f, vr_f, transform, mode=zfp_mode)
     ps_meas = _sz_measured_psnr(nohalo, seg, bounds, delta_f, vr_f)
     if kind == "light":
@@ -247,7 +254,7 @@ class _Sweep:
         return self._run(eb_c, delta_c, "full")
 
     def rate(self, eb_c, delta_c):
-        """The same 5-tuple with the one-pass block_bits ZFP coder model:
+        """(br_sz, br_zfp) with the one-pass block_bits ZFP coder model:
         probe-grade rates for the fixed_ratio refinement rounds."""
         return self._run(eb_c, delta_c, "rate")
 
@@ -439,7 +446,7 @@ def _solve_fixed_ratio(
     lvr = np.log2(np.maximum(vr, 1e-30)).astype(np.float64)
     x0 = lvr - 8.0
     x0_s, x0_z = _warm_seeds(warm, x0, x0, lvr - 26.0, lvr)
-    br_s0, _, br_z0, _, _ = refine.rate(
+    br_s0, br_z0 = refine.rate(
         np.exp2(x0_z)[None].astype(np.float32),
         np.exp2(x0_s)[None].astype(np.float32),
     )
@@ -449,8 +456,8 @@ def _solve_fixed_ratio(
                   ge=False, x_lo=lvr - 26.0, x_hi=lvr)
     for _ in range(rounds):
         xs, xz = s_sz.propose(), s_z.propose()
-        br_s, _, br_z, _, _ = refine.rate(np.exp2(xz)[None].astype(np.float32),
-                                          np.exp2(xs)[None].astype(np.float32))
+        br_s, br_z = refine.rate(np.exp2(xz)[None].astype(np.float32),
+                                 np.exp2(xs)[None].astype(np.float32))
         s_sz.step(xs, _sz_coder_rate(br_s[0]))
         s_z.step(xz, br_z[0])
     # final bounds: feasible-best; an unreachable budget rails at the

@@ -152,7 +152,7 @@ def lorenzo_residual_samples(
 @dataclass
 class Estimate:
     bitrate: torch.Tensor | None  # None from estimate_zfp_many(mode="psnr")
-    psnr: torch.Tensor
+    psnr: torch.Tensor | None     # None from estimate_zfp_many(psnr=False)
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -334,44 +334,43 @@ _SQRT_HALF_F32 = _f32_bits(0x3F3504F3)
 _NEG10_OVER_LN10 = float(np.float32(-10.0) * np.float32(1.0 / LN10))
 
 
-def _fma32(a, b, c) -> torch.Tensor:
-    """float32 a*b + c with one rounding (the FMAs XLA's CPU code uses):
-    the product is exact in double, and the double sum rounds to the same
-    float32 but for ties too rare to meet."""
-    d = torch.float64
-    return (torch.as_tensor(a).to(d) * torch.as_tensor(b).to(d) + torch.as_tensor(c).to(d)).to(
-        torch.float32
-    )
+def _round32(v: torch.Tensor) -> torch.Tensor:
+    """A double tensor rounded to float32, held in double. `_round32(a * b
+    + c)` of float32 values is the float32 FMA XLA's CPU code uses (one
+    rounding): the product is exact in double, and the double sum rounds
+    to the same float32 but for ties too rare to meet."""
+    return v.float().double()
 
 
 def _xla_log(x: torch.Tensor) -> torch.Tensor:
     """float32 natural log bit for bit as the reference's compiled programs
     take it on the CPU (XLA's polynomial, with its FMAs; subnormal inputs
     count as zero). torch's log differs from it by an ulp on about one
-    value in seven, enough to move the controller's secant."""
-    x = x.to(torch.float32)
+    value in seven, enough to move the controller's secant. The chain runs
+    in double, each step rounded to float32 where XLA's rounds (an FMA's
+    product is exact in double), in as few torch ops as that allows."""
+    x = x.float()
     tiny = torch.finfo(torch.float32).tiny
-    xc = torch.where(torch.isnan(x) | (x <= tiny), tiny, x)
-    bits = xc.view(torch.int32)
-    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    bits = x.clamp_min(tiny).view(torch.int32)  # NaN and inf: replaced below
+    e = ((bits >> 23) - 126).float()
     m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # [1/2, 1)
     low = m < _SQRT_HALF_F32
-    t = (m - 1.0) + torch.where(low, m, 0.0)
-    e = e - low.to(torch.float32)
-    t2 = t * t
-    t3 = t2 * t
+    t = ((m - 1.0) + torch.where(low, m, 0.0)).double()
+    e = (e - low.float()).double()
+    t2 = _round32(t * t)
+    t3 = _round32(t2 * t)
     p0, p1, p2, p3, p4, p5, p6, p7, p8 = _XLA_LOG_P
-    y = _fma32(_fma32(p0, t, p1), t, p2)
-    y1 = _fma32(_fma32(p3, t, p4), t, p5)
-    y = _fma32(y, t3, y1)
-    y2 = _fma32(_fma32(p6, t, p7), t, p8)
-    y = _fma32(t3, y, y2)
-    y = _fma32(y, t3, _XLA_LOG_Q1 * e)
-    r = _fma32(-0.5, t2, t) + y
-    r = _fma32(_XLA_LOG_Q2, e, r)
-    r = torch.where(x.abs() < tiny, -math.inf, r)
-    r = torch.where(x == math.inf, math.inf, r)
-    return torch.where((x < 0) | torch.isnan(x), math.nan, r)
+    y = _round32(_round32(t * p0 + p1) * t + p2)
+    y1 = _round32(_round32(t * p3 + p4) * t + p5)
+    y = _round32(torch.addcmul(y1, y, t3))
+    y2 = _round32(_round32(t * p6 + p7) * t + p8)
+    y = _round32(torch.addcmul(y2, t3, y))
+    y = _round32(torch.addcmul(_round32(e * _XLA_LOG_Q1), y, t3))
+    r = _round32(_round32(t2 * -0.5 + t) + y)
+    r = (e * _XLA_LOG_Q2 + r).float()
+    normal = (x >= tiny) & (x < math.inf)
+    # the rest as XLA has them: zero and subnormals -inf, inf inf, x < 0 NaN
+    return torch.where(normal, r, torch.log(torch.where(x < tiny, torch.clamp_max(x, 0.0), x)))
 
 
 #: XLA takes log2 as log(x) * f32(1 / ln 2)
@@ -523,14 +522,14 @@ def _point_energy(err: torch.Tensor) -> torch.Tensor:
     the 16 of a 3-D block as 8 lanes, point i + 8 squared onto point i's
     square with an FMA, then the lanes halved pairwise (i + 4, i + 2,
     i + 1)."""
-    n, k = err.shape
-    if k != 16:
-        s = torch.zeros(n, dtype=torch.float32, device=err.device)
-        for j in range(k):
-            s = _fma32(err[:, j], err[:, j], s)
-        return s
-    lo, hi = err[:, :8], err[:, 8:]
-    lanes = _fma32(hi, hi, lo * lo)
+    e = err.double()
+    if e.shape[1] != 16:
+        s = torch.zeros_like(e[:, 0])
+        for j in range(e.shape[1]):
+            s = _round32(torch.addcmul(s, e[:, j], e[:, j]))
+        return s.float()
+    lo, hi = e[:, :8], e[:, 8:]
+    lanes = torch.addcmul(_round32(lo * lo), hi, hi).float()
     lanes = lanes[:, :4] + lanes[:, 4:]
     lanes = lanes[:, :2] + lanes[:, 2:]
     return lanes[:, 0] + lanes[:, 1]
@@ -544,6 +543,8 @@ def estimate_zfp_many(
     vr_f: torch.Tensor,
     transform: str = "zfp",
     mode: str = "exact",
+    *,
+    psnr: bool = True,
 ) -> Estimate:
     """`estimate_zfp` for a packed batch of blocks from many fields.
     `blocks` is (total_blocks, 4, ..) in field order, seg[i] = field of
@@ -560,7 +561,12 @@ def estimate_zfp_many(
     equals the single-field path's; only the final means become
     boundary-windowed prefix sums (bits in int32, the error energy
     normalized by each field's vr^2 before its prefix sum).
+
+    `psnr=False` skips the PSNR (`psnr` is None) for callers that read only
+    the rate (the KV tier's budget grid, the controller's rate probes).
     """
+    if mode == "psnr" and not psnr:
+        raise ValueError("estimate_zfp_many(mode='psnr', psnr=False) estimates nothing")
     nd = blocks.ndim - 1
     bsz = 4**nd
     dev = blocks.device
@@ -582,6 +588,13 @@ def estimate_zfp_many(
         bits_blk = None
     else:
         raise ValueError(f"unknown estimate_zfp_many mode {mode!r}")
+    nblk_f = (bounds[1:] - bounds[:-1]).to(torch.float32)
+    bitrate = None
+    if bits_blk is not None:
+        bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
+        bitrate = bits_f / torch.clamp_min(nblk_f * bsz, 1.0)
+    if not psnr:
+        return Estimate(bitrate=bitrate, psnr=None)
     # PSNR from the EC sample points, as in estimate_zfp
     sel = torch.as_tensor(np.flatnonzero(_ec_point_mask(nd).reshape(-1)), device=dev)
     s = step.reshape(-1, 1).to(torch.float32)
@@ -592,11 +605,6 @@ def estimate_zfp_many(
     vr32 = torch.clamp_min(vr_f.to(device=dev, dtype=torch.float32), 1e-30)
     err2n_blk = _point_energy((co - rec) * scale) / torch.square(vr32[seg])
     err2n_f = field_sums(err2n_blk, bounds)
-    nblk_f = (bounds[1:] - bounds[:-1]).to(torch.float32)
-    bitrate = None
-    if bits_blk is not None:
-        bits_f = field_sums(bits_blk.to(torch.int32), bounds).to(torch.float32)
-        bitrate = bits_f / torch.clamp_min(nblk_f * bsz, 1.0)
     mse_over_vr2 = err2n_f / torch.clamp_min(nblk_f * len(sel), 1.0)
     return Estimate(bitrate=bitrate, psnr=_neg10_log10(mse_over_vr2))
 

@@ -85,7 +85,7 @@ def _budget_eb(page: torch.Tensor, vr: torch.Tensor, target_ratio: float) -> tor
     seg = torch.arange(n_c, device=dev).repeat_interleave(n_s)
     bounds = torch.arange(n_c + 1, device=dev) * n_s
     rates = est.estimate_zfp_many(
-        cand, seg, bounds, ebs, vr.expand(n_c), mode="model"
+        cand, seg, bounds, ebs, vr.expand(n_c), mode="model", psnr=False
     ).bitrate  # nonincreasing along the grid
     ok = rates <= torch.tensor(32.0 / target_ratio, dtype=torch.float32, device=dev)
     idx = torch.argmax(ok.to(torch.int32))  # first (tightest) candidate meeting the budget
