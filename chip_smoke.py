@@ -32,7 +32,20 @@ phase that goes wrong:
    declined and that every decoded value is within eb_abs;
 5. `ops.lorenzo_decode` (K3/K4) on the main path's SZ fields, from the
    K1/K2 codes at their eb_sz, within eb + 4 spacing(max|x|);
-6. the quality targets (fixed_psnr 60, fixed_ratio 8, fixed_ssim 0.97,
+6. the warm path (`[warm]`): `select_many` with a `DecisionCache` on the 17
+   paper-sized fields in three calls (cold: all miss; identical: all hit,
+   equal to the cold decisions; one field times 1000 and one nudged by an
+   ulp: exactly those two invalidated), then `solve_many` under
+   fixed_ratio(8) the same way, and with ``warm_start=True``;
+7. warm checkpoint saves at full width (`[ckpt]`): the pytree phase's
+   16-leaf tree through `CheckpointManager(CheckpointConfig(dir,
+   cache=True, device_encode=True, workers=4))` at steps 0-2 (cold,
+   identical, perturbed), with each save's ms, bytes, ratio and cache
+   events, K1 and K2 launched and no decline; `restore()` within each
+   lossy leaf's bound and raw leaves bit for bit; a fresh manager's
+   restore and all-hit save; `async_save` + `wait`; `workers=0` writing
+   step 1's `data.bin` again;
+8. the quality targets (fixed_psnr 60, fixed_ratio 8, fixed_ssim 0.97,
    fixed_correlation 0.995, fixed_ks 0.1): `solve_many` on the 17
    paper-sized fields under each mode beside `select_many` (one
    `[targets]` line a mode); `compress(..., device_encode=True)` and
@@ -40,17 +53,17 @@ phase that goes wrong:
    within 1 dB of 60 dB, an ATM and a Hurricane SZ field within 10% of
    ratio 8); `compress_pytree` under a `PolicySet` with a rule per mode,
    every decoded leaf within its contract; K1 and K2 launched from it;
-7. CPU against card at reduced sizes: decisions within the golden-suite
+9. CPU against card at reduced sizes: decisions within the golden-suite
    tolerances and container bytes equal for the same `Selection`, and the
    target solves under each mode within the CPU parity suite's;
-8. the KV page tier at the full width of phi4-mini-3.8b (32 layers, 8 KV
+10. the KV page tier at the full width of phi4-mini-3.8b (32 layers, 8 KV
    heads of 128): one 2048-token request's bf16 K and V arenas on the
    card, every page stack evicted through `compress_page` under the
    serving policy (fixed_ratio 8, K6), restored with `decompress_page`,
    and evicted again (all decision-cache hits); eight flat (2048, 1024)
    pages through `bot_compress_kv` (K5); four stacks through the device
    encoder and four raw;
-9. one JSON line with every kernel's launches on its path, error, times,
+11. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -1071,9 +1084,14 @@ def pytree(torch, np, dev, atm, hurricane, rows):
 
 def phase_pytree(torch, np, dev, atm, hurricane, rows, card):
     """`compress_pytree(tree, pset, device_encode=True)` on the card with the
-    default workers, then `decompress_pytree`. Returns the K1/K2 launches
-    of the compress."""
-    from repro_torch.core import Policy, PolicySet, compress_pytree, decompress_pytree
+    default workers, then `decompress_pytree` of its ten small leaves (the
+    six full-width leaves are decoded, from the same device-encoded streams,
+    by the checkpoint phase's restores). Returns the K1/K2 launches of the
+    compress."""
+    from repro_torch.core import (
+        CompressedTree, Policy, PolicySet, compress_pytree, decompress_pytree,
+    )
+    from repro_torch.core import pytree as pt
     from repro_torch.core import device_encode as de
     from repro_torch.core.selector import _fold_ndim
     from repro_torch.kernels import lorenzo
@@ -1102,12 +1120,15 @@ def phase_pytree(torch, np, dev, atm, hurricane, rows, card):
     check({n for n, cf in ct.fields.items() if cf.codec == "raw"} == want_raw,
           f"raw leaves {ct.selection_bits}")
     check(ct.fields["hur/zfp"].codec == "zfp", "the ZFP field was not given to ZFP")
+    small = {k: v for k, v in tree.items() if k not in ("atm", "hur")}
+    small_names = [pt.leaf_name(p) for p, _ in pt.flatten_with_path(small)[0]]
+    small_ct = CompressedTree({n: ct.fields[n] for n in small_names}, pt.flatten_with_path(small)[1])
     t0 = time.perf_counter()
-    out = decompress_pytree(ct, device=dev)
+    out = decompress_pytree(small_ct, device=dev)
     torch.cuda.synchronize()
     decompress_ms = (time.perf_counter() - t0) * 1e3
-    flat = {n: v for n, v in zip(PYTREE_NAMES, _leaves(tree))}
-    back = {n: v for n, v in zip(PYTREE_NAMES, _leaves(out))}
+    flat = {n: v for n, v in zip(small_names, _leaves(small))}
+    back = {n: v for n, v in zip(small_names, _leaves(out))}
     for name, x in flat.items():
         y, cf = back[name], ct.fields[name]
         xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -1126,9 +1147,208 @@ def phase_pytree(torch, np, dev, atm, hurricane, rows, card):
           "workers=0 bytes differ from the threaded compress")
     log("pytree", json.dumps(dict(
         leaves=len(ct.fields), codecs=ct.selection_bits, ratio=ct.ratio, nbytes=ct.nbytes,
-        raw_nbytes=ct.raw_nbytes, compress_ms=compress_ms, decompress_ms=decompress_ms,
-        peak_gib=peak_gib, k1_launches=launches["lorenzo2d_encode"],
+        raw_nbytes=ct.raw_nbytes, compress_ms=compress_ms, decompressed=len(small_names),
+        decompress_ms=decompress_ms, peak_gib=peak_gib, k1_launches=launches["lorenzo2d_encode"],
         k2_launches=launches["lorenzo3d_encode"], card=card)))
+    return launches
+
+
+def _perturbed(np, fields: dict, jump: str, nudge: str) -> dict:
+    """`fields` with `jump` times 1000 and the first value of `nudge` moved
+    up by one ulp (the golden warm trajectory's step 2)."""
+    out = dict(fields)
+    out[jump] = fields[jump] * np.float32(1000.0)
+    bumped = fields[nudge].copy()
+    bumped.flat[0] = np.nextafter(bumped.flat[0], np.float32(np.inf))
+    out[nudge] = bumped
+    return out
+
+
+def _timed(torch, fn):
+    """(fn(), host ms around it, the card synchronized on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _events(cache) -> dict:
+    return {e: sum(v == e for v in cache.events.values()) for e in ("miss", "hit", "invalidated")}
+
+
+def phase_warm(torch, np, dev, atm, hurricane):
+    """The warm path on the 17 paper-sized fields: `select_many` with a
+    `DecisionCache` in three calls (cold: all miss; identical: all hit, each
+    `Selection` equal to the cold one; one field times 1000 and one nudged
+    by an ulp: exactly those two invalidated), then `solve_many` under
+    fixed_ratio(8) the same way, and a third solve with ``warm_start=True``
+    re-solving the invalidated pair from their previous bounds. Host clock
+    ending in a synchronize, after a warm-up call."""
+    from repro_torch.core import DecisionCache, Policy, select_many, solve_many
+
+    fields = {**atm, **{f"HUR_{k}": v for k, v in hurricane.items()}}
+    names = list(fields)
+    jump, nudge = names[0], names[len(atm)]
+    steps = [fields, fields, _perturbed(np, fields, jump, nudge)]
+    select_many(list(fields.values()), eb_rel=EB_REL, device=dev)  # warm-up
+
+    def trajectory(label, run, cache):
+        out, ms = [], []
+        for k, flds in enumerate(steps):
+            cache.reset_stats()
+            got, t = _timed(torch, lambda: run(list(flds.values()), cache))
+            out.append(got)
+            ms.append(t)
+            ev = _events(cache)
+            want = ({"miss": len(names), "hit": 0, "invalidated": 0}, {"miss": 0, "hit": len(names),
+                    "invalidated": 0}, {"miss": 0, "hit": len(names) - 2, "invalidated": 2})[k]
+            check(ev == want, f"{label} call {k}: events {ev}, expected {want}")
+            log("warm", json.dumps(dict(solver=label, call=("cold", "identical", "perturbed")[k],
+                                        ms=t, events=ev)))
+        check(out[1] == out[0], f"{label}: the warm decisions differ from the cold ones")
+        check(cache.events[jump] == cache.events[nudge] == "invalidated",
+              f"{label}: {jump} / {nudge} not invalidated")
+        return out, ms
+
+    pol = Policy.fixed_accuracy(eb_rel=EB_REL)
+    sels, sel_ms = trajectory(
+        "select_many", lambda a, c: select_many(a, policy=pol, cache=c, names=names, device=dev),
+        DecisionCache())
+    cold = select_many(list(steps[2].values()), policy=pol, device=dev)
+    for k in (jump, nudge):
+        i = names.index(k)
+        check(sels[2][i] == select_many([steps[2][k]], policy=pol, device=dev)[0],
+              f"{k}: the re-decision differs from a cold call on it")
+        check(sels[2][i].codec == cold[i].codec, f"{k}: codec differs from the full cold call")
+    ratio = Policy.fixed_ratio(8.0)
+    sols, sol_ms = trajectory(
+        "solve_many", lambda a, c: solve_many(a, ratio, cache=c, names=names, device=dev),
+        DecisionCache())
+    ws = DecisionCache(warm_start=True)
+    solve_many(list(fields.values()), ratio, cache=ws, names=names, device=dev)
+    ws.reset_stats()
+    warm_sols, ws_ms = _timed(
+        torch, lambda: solve_many(list(steps[2].values()), ratio, cache=ws, names=names, device=dev))
+    check(_events(ws)["invalidated"] == 2, f"warm_start: events {_events(ws)}")
+    pair = {}
+    for k in (jump, nudge):
+        i = names.index(k)
+        a, b = warm_sols[i], sols[2][i]
+        check(a.on_target and math.isfinite(a.est_bitrate),
+              f"{k}: warm-started solve missed its target ({a.est_bitrate})")
+        pair[k] = dict(warm_start_eb=a.selection.eb_abs, cold_eb=b.selection.eb_abs,
+                       warm_start_bitrate=a.est_bitrate, cold_bitrate=b.est_bitrate)
+    log("warm", json.dumps(dict(
+        fields=len(names), select_ms=sel_ms, solve_ratio8_ms=sol_ms, warm_start_ms=ws_ms,
+        warm_start_pair=pair)))
+
+
+#: the checkpoint phase's steps: cold, identical, perturbed
+CKPT_STEPS = ("cold", "identical", "perturbed")
+
+
+def phase_ckpt(torch, np, dev, atm, hurricane, rows, card):
+    """Warm checkpoint saves at full width: the pytree phase's 16-leaf tree
+    through `CheckpointManager(CheckpointConfig(dir, cache=True,
+    device_encode=True, workers=4))` at steps 0, 1 and 2 (cold, identical,
+    one field times 1000 and one nudged by an ulp), each save's ms,
+    `data.bin` bytes, ratio and cache events; no device encode declined.
+    `restore()` of step 2: each lossy leaf within its bound, raw leaves bit
+    for bit, on the card. A fresh manager on the directory restores and
+    saves again, all hits; one `async_save` + `wait`; `workers=0` on step
+    1's tree writes step 1's `data.bin`. Returns the K1/K2 launches of the
+    phase."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core import Policy, PolicySet
+    from repro_torch.core import device_encode as de
+    from repro_torch.kernels import lorenzo
+
+    tree = pytree(torch, np, dev, atm, hurricane, rows)
+    perturbed = dict(tree, atm=dict(tree["atm"]), hur=dict(tree["hur"]))
+    perturbed["atm"]["ATM_00"] = tree["atm"]["ATM_00"] * np.float32(1000.0)
+    bumped = tree["hur"]["sz"].copy()
+    bumped.flat[0] = np.nextafter(bumped.flat[0], np.float32(np.inf))
+    perturbed["hur"]["sz"] = bumped
+    trees = [tree, tree, perturbed]
+    pset = PolicySet(default=Policy.fixed_accuracy(eb_rel=EB_REL), rules=[("frozen", Policy.raw())])
+
+    def config(d, **kw):
+        return CheckpointConfig(d, policy=pset, cache=True, device_encode=True,
+                                **{"workers": 4, **kw})
+
+    def manifest(path):
+        with open(Path(path) / "manifest.json") as f:
+            return json.load(f)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = str(Path(tmp) / "run")
+        mgr = CheckpointManager(config(d), device=dev)
+        lorenzo.reset_launches()
+        de.DECLINES.clear()
+        paths = []
+        for step, t in enumerate(trees):
+            mgr.cache.reset_stats()
+            path, ms = _timed(torch, lambda: mgr.save(step, t))
+            paths.append(path)
+            man = manifest(path)
+            ev = _events(mgr.cache)
+            log("ckpt", json.dumps(dict(
+                step=step, kind=CKPT_STEPS[step], save_ms=ms, data_bytes=man["total_bytes"],
+                raw_bytes=man["raw_bytes"], ratio=man["raw_bytes"] / man["total_bytes"],
+                events=ev, codecs=man["selection_bits"])))
+            lossy = len(mgr.cache.entries)
+            want = ({"miss": lossy, "hit": 0, "invalidated": 0},
+                    {"miss": 0, "hit": lossy, "invalidated": 0},
+                    {"miss": 0, "hit": lossy - 2, "invalidated": 2})[step]
+            check(ev == want, f"ckpt step {step}: events {ev}, expected {want}")
+        launches = dict(lorenzo.LAUNCHES)
+        with open(Path(paths[1]) / "data.bin", "rb") as f:
+            step1_data = f.read()  # keep_n prunes step 1 before the serial save
+        check(sum(de.DECLINES.values()) == 0, f"ckpt: device encode declined: {dict(de.DECLINES)}")
+        for name in ("lorenzo2d_encode", "lorenzo3d_encode"):
+            check(launches[name] >= 1, f"ckpt: {name} never launched by the saves")
+        (step, flat), restore_ms = _timed(torch, mgr.restore)
+        check(step == 2, f"restored step {step}")
+        rows_by_name = {r["name"]: r for r in manifest(paths[2])["fields"]}
+        src = {n: v for n, v in zip(PYTREE_NAMES, _leaves(perturbed))}
+        err_over_eb = {}
+        for name, x in src.items():
+            y, row = flat[name], rows_by_name[name]
+            xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+            check(y.device.type == dev.type and tuple(y.shape) == tuple(xt.shape)
+                  and y.dtype == xt.dtype, f"{name}: restored {y.dtype} {tuple(y.shape)} on {y.device}")
+            if row["codec"] in ("sz", "zfp"):
+                err = float((y.cpu().double() - xt.cpu().double()).abs().max())
+                err_over_eb[name] = err / row["eb"]
+                check(err <= row["eb"], f"{name}: max |err| {err} > eb {row['eb']}")
+            elif row["codec"] == "none":
+                check(torch.equal(_bytes(torch, y), _bytes(torch, xt)), f"{name}: raw leaf not bit for bit")
+            else:  # degenerate: the float32 view's bits
+                check(torch.equal(_bytes(torch, y.float()), _bytes(torch, xt.float())),
+                      f"{name}: degenerate raw leaf changed")
+        del flat
+        fresh = CheckpointManager(config(d), device=dev)
+        _, fresh_restore_ms = _timed(torch, fresh.restore)
+        fresh.cache.reset_stats()
+        _, fresh_ms = _timed(torch, lambda: fresh.save(3, perturbed))
+        check(_events(fresh.cache) == {"miss": 0, "hit": lossy, "invalidated": 0},
+              f"fresh manager: events {_events(fresh.cache)}")
+        thread, enqueue_ms = _timed(torch, lambda: mgr.async_save(4, perturbed))
+        _, wait_ms = _timed(torch, mgr.wait)
+        check(thread.save_result["path"].endswith("step_000000004"), f"async: {thread.save_result}")
+        serial_dir = str(Path(tmp) / "serial")
+        serial = CheckpointManager(config(serial_dir, workers=0), device=dev)
+        path, serial_ms = _timed(torch, lambda: serial.save(1, tree))
+        with open(Path(path) / "data.bin", "rb") as f:
+            check(f.read() == step1_data, "workers=0 data.bin differs from the threaded step 1")
+    log("ckpt", json.dumps(dict(
+        restore_ms=restore_ms, max_err_over_eb=err_over_eb, fresh_restore_ms=fresh_restore_ms,
+        fresh_save_ms=fresh_ms, async_enqueue_ms=enqueue_ms, async_wait_ms=wait_ms,
+        serial_save_ms=serial_ms, k1_launches=launches["lorenzo2d_encode"],
+        k2_launches=launches["lorenzo3d_encode"], declines=0, card=card)))
     return launches
 
 
@@ -1326,6 +1546,9 @@ def main() -> int:
     phase_kernels_at_main(torch, dev, rows, parity)
     phase_select_many(torch, np, dev, atm, hurricane)
     for name, n in phase_pytree(torch, np, dev, atm, hurricane, rows, card).items():
+        launches[name] += n
+    phase_warm(torch, np, dev, atm, hurricane)
+    for name, n in phase_ckpt(torch, np, dev, atm, hurricane, rows, card).items():
         launches[name] += n
     by_mode = phase_targets(torch, np, dev, atm, hurricane)
     target_launches = phase_target_roundtrips(torch, np, dev, atm, hurricane, by_mode)

@@ -2,7 +2,8 @@
 selection between SZ- and ZFP-style error-bounded lossy compression, run
 on an NVIDIA H100.
 
-The package mirrors `repro`'s layout (`core/`, `kernels/`) and imports
+The package mirrors `repro`'s layout (`core/`, `kernels/`, `runtime/`,
+`checkpoint/`) and imports
 neither JAX nor `repro`. Entry points run on the GPU unless the caller
 passes ``device="cpu"`` (see `repro_torch.device`).
 """

@@ -1,11 +1,21 @@
 """repro_torch.core — Algorithm 1 for one field and batched over many, the
-quality-target controller, the SZ and ZFP byte codecs, the device-resident
+quality-target controller, the warm path (the decision cache and the
+statistical predictor), the SZ and ZFP byte codecs, the device-resident
 encode, and pytrees, in PyTorch."""
 
 from . import codecs, quality
 from .api import CompressedTree, compress, compress_pytree, decompress_pytree
 from .controller import TargetSolution, estimate_curves, solve, solve_many
+from .decision_cache import CacheEntry, DecisionCache
 from .policy import Policy, PolicySet
+from .predictor import (
+    FieldStats,
+    confidence,
+    fingerprint_of,
+    predict_curves,
+    predict_selection,
+    select_many_predicted,
+)
 from .selector import (
     CompressedField,
     Selection,
@@ -20,8 +30,11 @@ from .sz import sz_compress, sz_decompress
 from .zfp import zfp_compress, zfp_decompress
 
 __all__ = [
+    "CacheEntry",
     "CompressedField",
     "CompressedTree",
+    "DecisionCache",
+    "FieldStats",
     "Policy",
     "PolicySet",
     "Selection",
@@ -30,14 +43,19 @@ __all__ = [
     "compress",
     "compress_pytree",
     "compression_ratio",
+    "confidence",
     "decompress",
     "decompress_pytree",
     "encode_with_selection",
     "estimate_curves",
+    "fingerprint_of",
+    "predict_curves",
+    "predict_selection",
     "quality",
     "select",
     "select_and_compress",
     "select_many",
+    "select_many_predicted",
     "solve",
     "solve_many",
     "sz_compress",

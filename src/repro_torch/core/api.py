@@ -140,13 +140,16 @@ def _coerce_policy(
     return policy_from_kwargs(where, **legacy, default_eb_rel=1e-4, stacklevel=stacklevel)
 
 
-def _policy_selections(fields: list, pol: Policy, device) -> list[Selection]:
+def _policy_selections(
+    fields: list, pol: Policy, device, cache=None, names=None
+) -> list[Selection]:
     """One policy group's decisions: fixed_accuracy runs Algorithm 1
     batched (`select_many`); the target modes run the controller
-    (`solve_many`) and unwrap its `TargetSolution`s."""
+    (`solve_many`) and unwrap its `TargetSolution`s. `cache`/`names` take
+    either solver's warm path."""
     if pol.mode == "fixed_accuracy":
-        return select_many(fields, policy=pol, device=device)
-    sols = _controller.solve_many(fields, pol, device=device)
+        return select_many(fields, policy=pol, cache=cache, names=names, device=device)
+    sols = _controller.solve_many(fields, pol, cache=cache, names=names, device=device)
     return [s.selection for s in sols]
 
 
@@ -285,7 +288,11 @@ def compress_pytree(
         policy group's sampled blocks go through `select_many`
         (fixed_accuracy) or `solve_many` (the target modes).
       sharded: the shard-local engine is not ported yet; True raises.
-      cache: the warm path is not ported yet; a cache raises.
+      cache: a `DecisionCache` carrying per-leaf decisions across repeated
+        saves of the same tree: leaves whose sampled blocks fingerprint as
+        before replay the previous decision (what the cold path would
+        recompute) and skip the estimator; drifted or new leaves re-decide
+        and refresh their entry. The caller owns the cache and reuses it.
       device_encode: finish Stage III on the device for codecs that can;
         decisions are unchanged, and a declined field takes the host coder.
       device: where selection and the device encode run; default the GPU.
@@ -313,17 +320,15 @@ def compress_pytree(
             "compress_pytree(sharded=True) needs the shard-local engine "
             "(core/sharded.py), not yet ported: ROADMAP.md queue A, item 14"
         )
-    if cache is not None:
-        raise NotImplementedError(
-            "compress_pytree(cache=...) needs the warm path (core/predictor.py), "
-            "not yet ported: ROADMAP.md queue A, item 8"
-        )
     dev = _device.resolve(device)
     leaves, treedef = _pytree.flatten_with_path(tree)
     named, pol_of = _named_leaves_with_policies(leaves, pset, predicate)
     sel_of: dict[int, Selection] = {}
     for p, idxs in group_by_policy(pol_of).items():
-        sels = _policy_selections([named[i][1] for i in idxs], p, dev)
+        sels = _policy_selections(
+            [named[i][1] for i in idxs], p, dev, cache=cache,
+            names=[named[i][0] for i in idxs] if cache is not None else None,
+        )
         sel_of.update(zip(idxs, sels))
 
     def encode(i: int) -> CompressedField:

@@ -1,8 +1,9 @@
 """Quality-target controller: fixed-PSNR, fixed-ratio and the metric modes
 (DESIGN.md §7), in torch.
 
-Port of `repro.core.controller` without its warm cache (item 8 of the
-roadmap's queue A; the `warm=` seeds are plumbed through). The selection
+Port of `repro.core.controller`, its warm path included (a
+`DecisionCache` replays solved fields and can seed the secant of drifted
+ones from their previous bound). The selection
 engine answers "which codec is cheapest at this error bound"; callers
 usually hold a quality target instead ("60 dB", "8x", "SSIM 0.97"). The
 controller solves for the per-field bound that meets the target on the
@@ -52,6 +53,8 @@ from .selector import (
     _max_batch_blocks,
     _numel,
     _pack_blocks,
+    cache_key,
+    check_names,
     select_many,
 )
 
@@ -617,13 +620,11 @@ def solve_many(
     exceed a batch's block cap are strided down to it, so every field stays
     in the batched sweep. Returns one `TargetSolution` per field, in order.
 
-    `cache=` and `names=` (the warm path) are not ported yet.
+    `cache` (a `DecisionCache`) with `names` takes the warm path:
+    fingerprint-validated fields replay the previous `TargetSolution`
+    without entering the sweep; with ``cache.warm_start`` an invalidated
+    entry seeds the secant from its previously solved bound.
     """
-    if cache is not None or names is not None:
-        raise NotImplementedError(
-            "solve_many(cache=..., names=...) needs the warm path "
-            "(core/predictor.py), not yet ported: ROADMAP.md queue A, item 8"
-        )
     if isinstance(policy, str):
         policy = policy_from_kwargs(
             "solve_many", mode=policy, eb_abs=eb_abs, eb_rel=eb_rel,
@@ -639,7 +640,9 @@ def solve_many(
     if mode == "raw":
         raise ValueError("solve_many has nothing to solve for Policy.raw()")
     if mode == "fixed_accuracy":
-        sels = select_many(fields, policy=policy, transform=transform, device=dev)
+        sels = select_many(
+            fields, policy=policy, transform=transform, cache=cache, names=names, device=dev
+        )
         # raw stores are lossless at exactly 32 b/v, whatever the estimates
         return [
             TargetSolution(
@@ -662,10 +665,70 @@ def solve_many(
     groups = _build_solve_members(
         fields, range(len(fields)), results, mode, target, policy.r_sp, dev
     )
-    _solve_groups(
-        groups, results, mode, target, n_rounds, policy.r_sp, transform, policy.codecs
+    if cache is None:
+        _solve_groups(
+            groups, results, mode, target, n_rounds, policy.r_sp, transform, policy.codecs
+        )
+        return results  # type: ignore[return-value]
+    _solve_many_cached(
+        fields, names, results, groups, cache, policy, mode, target, n_rounds, transform
     )
     return results  # type: ignore[return-value]
+
+
+def _solve_many_cached(
+    fields,
+    names,
+    results: list[TargetSolution | None],
+    groups: dict[int, list[_Member]],
+    cache,
+    policy: Policy,
+    mode: str,
+    target: float,
+    n_rounds: int,
+    transform: str,
+) -> None:
+    """Warm half of `solve_many`'s target modes, as `select_many`'s: replay
+    the validated `TargetSolution`s and sweep only the misses. A miss whose
+    entry merely drifted (key match, fingerprint mismatch) seeds the secant
+    from its previously solved bound when the cache has `warm_start`."""
+    from . import predictor as _pred
+
+    names = check_names(names, fields)
+    miss_groups: dict[int, list[_Member]] = {}
+    warm: dict[int, tuple[float, float]] = {}
+    to_store: list[tuple[int, str, tuple, str, dict]] = []
+    for nd, members in groups.items():
+        tuples = [(m.idx, m.blocks, 0.0, m.vr, m.size) for m in members]
+        for m, (_stats, fp) in zip(members, _pred.stats_for_members(nd, tuples, policy.r_sp)):
+            i = m.idx
+            shape, dtype = cache_key(fields[i])
+            entry = cache.lookup(names[i], shape, dtype, policy, transform, fp)
+            if entry is not None and entry.solution is not None:
+                results[i] = entry.to_solution()
+                continue
+            miss_groups.setdefault(nd, []).append(m)
+            to_store.append((i, names[i], shape, dtype, fp))
+            if cache.warm_start:
+                prev = cache.stale(names[i], shape, dtype, policy, transform)
+                if prev is not None and prev.solution is not None:
+                    sel = prev.to_selection()
+                    if sel.codec != "raw" and sel.eb_sz > 0:
+                        x_s = math.log2(2.0 * sel.eb_sz)
+                        x_z = (
+                            math.log2(sel.eb_abs)
+                            if sel.codec == "zfp" and sel.eb_abs > 0
+                            else x_s - 1.0
+                        )
+                        warm[i] = (x_s, x_z)
+    if miss_groups:
+        _solve_groups(
+            miss_groups, results, mode, target, n_rounds, policy.r_sp, transform,
+            policy.codecs, warm=warm or None,
+        )
+    for i, name, shape, dtype, fp in to_store:
+        sol = results[i]
+        cache.store(name, shape, dtype, policy, transform, fp, sol.selection, solution=sol)
 
 
 def _build_solve_members(

@@ -8,9 +8,9 @@ of:
 
     (field name, original shape, original dtype, Policy.spec(), transform)
 
-and guarded by a fingerprint dict: a content digest (the serving tier's
-`kvcomp._page_fingerprint`; the statistical predictor's
-`fingerprint_of` is not ported yet) and, optionally, moments. With the
+and guarded by a fingerprint dict: a content digest (the statistical
+predictor's `predictor.fingerprint_of` over the sampled halo blocks, or the
+serving tier's `kvcomp._page_fingerprint`) and, optionally, moments. With the
 default ``tolerance=0.0`` an entry validates only on digest equality, so
 a hit is exactly the decision the cold path would recompute;
 ``tolerance > 0`` also accepts moment drift within a relative band.
@@ -106,10 +106,9 @@ class DecisionCache:
 
     ``warm_start=True`` lets the quality-target controller seed its
     secant from an *invalidated* entry's solved bound (`stale`), cutting
-    refinement rounds on drifted fields (`solve_many(cache=...)`, the warm
-    path, is not ported yet). Off by default: warm-started re-solves can
-    differ from cold solves in ulps, and the default contract is
-    bit-identity.
+    refinement rounds on drifted fields (`solve_many(cache=...)`). Off by
+    default: warm-started re-solves can differ from cold solves in ulps,
+    and the default contract is bit-identity.
     """
 
     def __init__(self, tolerance: float = 0.0, warm_start: bool = False):

@@ -172,9 +172,10 @@ def sz_encode_device(x, eb: float, *, device=None) -> bytes | None:
 
 
 def _zfp_pass1(x: torch.Tensor, transform: str):
-    """Blockize + exponent-align + BOT, float32."""
+    """Blockize + exponent-align + BOT, float32. The exponents take the exact
+    `log2`, as the host coder's float64 numpy does, so the codes are its."""
     blocks, _ = blockize(x)
-    norm, e = align_blocks(blocks)
+    norm, e = align_blocks(blocks, exact=True)
     return block_transform_nd(norm, bot_matrix(transform), x.ndim), e
 
 

@@ -5,6 +5,12 @@ Port of `repro.core.embedded`. Per 4^n block: exponent alignment, BOT,
 bit-plane truncation at a power-of-two step chosen from the absolute
 bound and the transform's Linf gain, and the rate of the plane-sectioned
 k-prefix coder of `zfp.py` (exactly, or by the closed-form model).
+
+The exponents, steps and bit counts are estimates: they take the
+reference's XLA float32 `log2` and `exp2` (`xla_f32`), so a block whose
+maximum or truncated magnitude is a power of two lands on the reference's
+plane. `align_blocks(..., exact=True)` is the ZFP device encoder's form,
+whose codes must equal the host coder's exact numpy ones.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import to_int_saturating
+from .xla_f32 import _exp2, _xla_log2
 
 #: header bits per block in the byte format: e_max (int16) + n_planes (uint8)
 BLOCK_HEADER_BITS = 24
@@ -23,27 +30,33 @@ def _per_block(t: torch.Tensor, ndim: int) -> torch.Tensor:
     return t.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def block_exponent(blocks: torch.Tensor) -> torch.Tensor:
-    """e s.t. 2^e >= max|block| > 2^(e-1); shape (nblocks,). Empty-safe."""
+def block_exponent(blocks: torch.Tensor, *, exact: bool = False) -> torch.Tensor:
+    """e s.t. 2^e >= max|block| > 2^(e-1) (by the reference's XLA `log2`,
+    or torch's with `exact`); shape (nblocks,). Empty-safe."""
     n = blocks.ndim - 1
     mx = torch.amax(blocks.abs(), dim=tuple(range(1, n + 1)))
     mx = torch.clamp_min(mx, 1e-30)
-    return to_int_saturating(torch.ceil(torch.log2(mx)))
+    return to_int_saturating(torch.ceil((torch.log2 if exact else _xla_log2)(mx)))
 
 
-def align_blocks(blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Normalize each block into [-1, 1] by its power-of-two exponent."""
-    e = block_exponent(blocks)
-    scale = torch.exp2(-e.to(blocks.dtype))
+def align_blocks(
+    blocks: torch.Tensor, *, exact: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalize each block into [-1, 1] by its power-of-two exponent. The
+    estimates take the reference's XLA `log2`/`exp2`; ``exact=True`` takes
+    torch's exact ones, as the host coder's numpy does (the device
+    encoder)."""
+    e = block_exponent(blocks, exact=exact)
+    scale = torch.exp2(-e.to(blocks.dtype)) if exact else _exp2(-e).to(blocks.dtype)
     return blocks * _per_block(scale, blocks.ndim), e
 
 
 def plane_step(eb, e_max: torch.Tensor, linf_gain_n: float) -> torch.Tensor:
     """Power-of-two truncation step in normalized block space (float32),
-    small enough that the inverse BOT keeps |error| <= eb pointwise."""
-    raw = eb / (torch.exp2(e_max.to(torch.float32)) * linf_gain_n)
-    p = torch.floor(torch.log2(torch.clamp_min(raw, 2.0**-60)))
-    return torch.exp2(p)
+    small enough that the inverse BOT keeps |error| <= eb pointwise, with
+    the reference's XLA `exp2` and `log2`."""
+    raw = eb / (_exp2(e_max) * linf_gain_n)
+    return _exp2(torch.floor(_xla_log2(torch.clamp_min(raw, 2.0**-60))))
 
 
 def truncate_planes(coeffs: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
@@ -66,7 +79,7 @@ def significant_bits(coeffs: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     truncation plane. Shape = coeffs.shape, float32."""
     s = _per_block(step, coeffs.ndim).to(torch.float32)
     q = coeffs.to(torch.float32).abs() / s
-    nb = torch.floor(torch.log2(torch.clamp_min(q, 1.0))) + 1.0
+    nb = torch.floor(_xla_log2(torch.clamp_min(q, 1.0))) + 1.0
     return torch.where(q >= 1.0, nb, torch.zeros_like(nb))
 
 
@@ -102,7 +115,7 @@ def exact_coder_bits_blocks(
     mx = torch.amax(m, dim=1)
     mxf = torch.clamp_min(mx.to(torch.float32), 1.0)
     nsb = torch.where(
-        mx > 0, torch.floor(torch.log2(mxf)) + 1.0, torch.zeros_like(mxf)
+        mx > 0, torch.floor(_xla_log2(mxf)) + 1.0, torch.zeros_like(mxf)
     ).to(torch.int32)
     total = torch.zeros((nblk,), dtype=torch.float32, device=coeffs.device)
     for p in range(max_planes):

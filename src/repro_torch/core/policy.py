@@ -15,7 +15,8 @@ plus the estimator sampling rate (`r_sp`) and a codec allowlist (`codecs`,
 validated against the registry; `raw` is always available). A `PolicySet`
 maps field names to policies with ordered first-match-wins rules (globs,
 or regexes with an ``re:`` prefix). `spec` / `from_spec` give the
-JSON-safe form the reference records per field. `group_by_policy` groups a
+JSON-safe form the reference records per field (`policy_set_spec` a
+whole set's). `group_by_policy` groups a
 tree's leaves for batched selection, and `policy_from_kwargs` maps the
 deprecated keyword spelling onto a `Policy` with a `DeprecationWarning`.
 """
@@ -299,6 +300,20 @@ def group_by_policy(pol_of: dict[int, Policy]) -> dict[Policy, list[int]]:
     for i in sorted(pol_of):
         groups.setdefault(pol_of[i], []).append(i)
     return groups
+
+
+def policy_set_spec(pset: PolicySet) -> dict:
+    """JSON-safe form of a PolicySet (a checkpoint manifest's top-level
+    ``policy`` record): the default's spec, and the rules as [pattern, spec]
+    pairs (a compiled pattern as ``re:<pattern>``)."""
+
+    def pat_str(pat) -> str:
+        return f"re:{pat.pattern}" if isinstance(pat, re.Pattern) else pat
+
+    out: dict = {"default": pset.default.spec()}
+    if pset.rules:
+        out["rules"] = [[pat_str(p), pol.spec()] for p, pol in pset.rules]
+    return out
 
 
 # ---------------------------------------------------------------------------

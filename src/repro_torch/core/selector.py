@@ -1,8 +1,7 @@
 """Algorithm 1 — automatic online selection between SZ and ZFP (paper §5.3),
 for one field and batched over many, in torch.
 
-Port of `repro.core.selector` without its warm path (`select_many(cache=)`).
-Per field:
+Port of `repro.core.selector`. Per field:
 
   1. sample blocks (rate r_sp);
   2. estimate ZFP's (BR, PSNR) at the user's error bound;
@@ -15,7 +14,9 @@ as eb_sz = delta/2, clamped to eb_abs so the user's bound always holds.
 `select_many` runs Steps 1-3 for many fields at once over packed batches
 of their sampled blocks. Step 4 of Fig. 2 (`encode_with_selection`) runs
 the chosen codec through the registry; with ``device_encode=True`` the
-codec finishes Stage III on the device.
+codec finishes Stage III on the device. With a `DecisionCache`,
+`select_many` takes the warm path: fields whose sampled blocks
+fingerprint as before replay the previous decision (`core/predictor.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from .. import device as _device
 from . import codecs as _codecs
 from . import estimator as est
+from . import policy as _policy
 
 #: a codec *name*; byte encode/decode dispatches through the registry
 Codec = str
@@ -190,14 +192,15 @@ def select_many(
     reference's `select_many` for the same batch composition.
 
     `policy` (a fixed_accuracy `Policy`) is the object form of the
-    eb/r_sp/codecs arguments. `cache=` and `names=` (the warm path) are not
-    ported yet.
+    eb/r_sp/codecs arguments.
+
+    `cache` (a `DecisionCache`) with `names` (one stable name per field)
+    takes the warm path: each batchable field's sampled blocks are
+    fingerprinted (`core/predictor.py`), validated entries replay the
+    previous decision (what the cold path would recompute, since the
+    fingerprint digests the decision's whole input), and only the misses
+    run the estimator. Degenerate fields never consult the cache.
     """
-    if cache is not None or names is not None:
-        raise NotImplementedError(
-            "select_many(cache=..., names=...) needs the warm path "
-            "(core/predictor.py), not yet ported: ROADMAP.md queue A, item 8"
-        )
     if policy is not None:
         if policy.mode != "fixed_accuracy":
             raise ValueError(
@@ -217,8 +220,72 @@ def select_many(
     groups = _build_select_members(
         fields, range(len(fields)), results, eb_abs, eb_rel, r_sp, transform, codecs, dev
     )
-    _run_select_batches(groups, results, r_sp, transform, codecs)
+    if cache is None:
+        _run_select_batches(groups, results, r_sp, transform, codecs)
+        return results  # type: ignore[return-value]
+    if policy is None:
+        policy = _policy.Policy.fixed_accuracy(
+            eb_rel=eb_rel, eb_abs=eb_abs, r_sp=r_sp, codecs=codecs
+        )
+    _select_many_cached(fields, names, results, groups, cache, policy, r_sp, transform, codecs)
     return results  # type: ignore[return-value]
+
+
+def cache_key(x) -> tuple[tuple[int, ...], str]:
+    """A field's (shape, dtype name) as the decision cache keys it: the
+    numpy dtype name ("float32", "bfloat16"), as the reference records it,
+    for arrays and tensors alike."""
+    return tuple(int(s) for s in np.shape(x)), _device.dtype_name(x)
+
+
+def check_names(names, fields) -> list:
+    """The warm path's field names, one per field."""
+    if names is None:
+        raise ValueError("a cache needs names= (one stable name per field)")
+    names = list(names)
+    if len(names) != len(fields):
+        raise ValueError(f"names/fields length mismatch: {len(names)} vs {len(fields)}")
+    return names
+
+
+def _select_many_cached(
+    fields,
+    names,
+    results: list[Selection | None],
+    groups: dict[int, list[Member]],
+    cache,
+    policy,
+    r_sp: float,
+    transform: str,
+    codecs: tuple[str, ...],
+) -> None:
+    """Warm half of `select_many`: fingerprint each batchable member, replay
+    the validated entries, batch only the misses through the estimator, and
+    store their fresh decisions.
+
+    The misses are batched with each other, not with the hits, so a miss's
+    decision equals a cold `select_many` over the miss subset (the float32
+    prefix-sum windows depend on the batch at the ulp level); hits replay
+    the stored decision as it was batched then."""
+    from . import predictor as _pred
+
+    names = check_names(names, fields)
+    miss_groups: dict[int, list[Member]] = {}
+    to_store: list[tuple[int, str, tuple, str, dict]] = []
+    for nd, members in groups.items():
+        for m, (_stats, fp) in zip(members, _pred.stats_for_members(nd, members, r_sp)):
+            i = m[0]
+            shape, dtype = cache_key(fields[i])
+            entry = cache.lookup(names[i], shape, dtype, policy, transform, fp)
+            if entry is not None:
+                results[i] = entry.to_selection()
+            else:
+                miss_groups.setdefault(nd, []).append(m)
+                to_store.append((i, names[i], shape, dtype, fp))
+    if miss_groups:
+        _run_select_batches(miss_groups, results, r_sp, transform, codecs)
+    for i, name, shape, dtype, fp in to_store:
+        cache.store(name, shape, dtype, policy, transform, fp, results[i])
 
 
 def _build_select_members(

@@ -3,7 +3,8 @@
 Port of `repro.core.zfp`, two paths:
 
 * `zfp_stats` — in-graph (torch, on the field's device) reconstruction and
-  exact rate/distortion, float32;
+  exact rate/distortion, float32, with the reference's XLA `log2`/`exp2`
+  (`xla_f32`);
 * `zfp_compress` / `zfp_decompress` — the host byte codec. Pipeline: 4^n
   blocking -> exponent alignment -> block orthogonal transform T(t) ->
   truncation at a conservative power-of-two plane step -> the
@@ -34,6 +35,7 @@ from .embedded import (
     significant_bits,
 )
 from .transforms import blockize, block_transform_nd, bot_linf_gain, bot_matrix, unblockize
+from .xla_f32 import _exp2
 
 _MAGIC = b"ZFJX"
 
@@ -66,7 +68,7 @@ def zfp_stats(x: torch.Tensor, eb, transform: str = "zfp") -> ZFPStats:
     rec_coeffs = reconstruct_truncated(coeffs, step)
     total_bits = exact_coder_bits(coeffs, step)
     rec_norm = block_transform_nd(rec_coeffs, T, n, inverse=True)
-    rec_blocks = rec_norm * torch.exp2(e.to(torch.float32)).reshape((-1,) + (1,) * n)
+    rec_blocks = rec_norm * _exp2(e).reshape((-1,) + (1,) * n)
     recon = unblockize(rec_blocks, padded, tuple(xf.shape))
     nsb = significant_bits(coeffs, step)
     mse = torch.mean(torch.square(xf - recon))

@@ -1,5 +1,7 @@
 """repro_torch.runtime — the serving tier's KV page compression
-(`kvcomp`), in PyTorch. The batcher, distribution and sharding modules of
-the reference's runtime are not ported yet (ROADMAP queue A items 13-14)."""
+(`kvcomp`) and the single-process runtime primitives the checkpoint manager
+calls (`dist`), in PyTorch. The batcher, the multi-process part of `dist`
+and the sharding module of the reference's runtime are not ported yet
+(ROADMAP queue A items 13-14)."""
 
-from . import kvcomp  # noqa: F401
+from . import dist, kvcomp  # noqa: F401

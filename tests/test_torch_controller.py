@@ -253,11 +253,20 @@ def test_legacy_mode_string_solves_the_same():
 
 
 def test_warm_cache_raises_naming_item_8():
+    """The warm path (item 8) is ported: a cache replays the cold solve and
+    the cold bytes; the shard-local engine (item 14) still raises."""
     x = FIELDS["atm/ATM_00"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solve_many([x], Policy.fixed_psnr(60.0), cache=DecisionCache(), names=["a"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        compress_pytree({"a": x}, Policy.fixed_psnr(60.0), cache=DecisionCache(), device="cpu")
+    cache = DecisionCache()
+    cold = solve_many([x], Policy.fixed_psnr(60.0), device="cpu")
+    for _ in range(2):
+        assert solve_many([x], Policy.fixed_psnr(60.0), cache=cache, names=["a"], device="cpu") == cold
+    assert cache.events == {"a": "hit"}
+    tree_cache = DecisionCache()
+    want = compress_pytree({"a": x}, Policy.fixed_psnr(60.0), device="cpu")
+    for _ in range(2):
+        got = compress_pytree({"a": x}, Policy.fixed_psnr(60.0), cache=tree_cache, device="cpu")
+        assert got.fields["a"].data == want.fields["a"].data
+    assert tree_cache.events == {"a": "hit"}
     with pytest.raises(NotImplementedError, match="item 14"):
         compress_pytree({"a": x}, Policy.fixed_psnr(60.0), sharded=True, device="cpu")
     with pytest.raises(ValueError, match="repro_torch.core.solve_many"):

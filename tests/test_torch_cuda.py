@@ -538,3 +538,144 @@ def test_compress_fixed_psnr_on_card(cuda_device, shape):
     y = decompress(cf, device=cuda_device)
     assert y.device.type == "cuda"
     assert abs(_psnr(x, y.cpu().numpy()) - 60.0) <= 1.0
+
+
+def _warm_steps(fields):
+    """The golden warm trajectory's three steps: cold, identical, and the
+    first field times 1000 with the second nudged by one ulp."""
+    names = list(fields)
+    jumped = dict(fields)
+    jumped[names[0]] = fields[names[0]] * 1000.0
+    nudged = fields[names[1]].copy()
+    nudged.flat[0] = np.nextafter(nudged.flat[0], np.float32(np.inf))
+    jumped[names[1]] = nudged
+    return names, [fields, fields, jumped]
+
+
+@pytest.mark.parametrize("solver", ["select_many", "solve_many"])
+def test_warm_path_on_card_equals_cpu(cuda_device, solver):
+    """`select_many` / `solve_many(fixed_ratio(8))` with a `DecisionCache`
+    on the card, three steps: the events equal the CPU's at every step
+    (the fingerprints digest the same sampled blocks), the card's warm
+    decisions equal its cold ones bit for bit, and each agrees with the
+    CPU's within the golden tolerances."""
+    from repro_torch.core import select_many, solve_many
+
+    names, steps = _warm_steps(_pytree_fields())
+
+    def run(fields, cache, dev):
+        arrs = list(fields.values())
+        if solver == "select_many":
+            return select_many(arrs, eb_rel=1e-4, cache=cache, names=names, device=dev)
+        sols = solve_many(arrs, Policy.fixed_ratio(8.0), cache=cache, names=names, device=dev)
+        return [s.selection for s in sols]
+
+    card, cpu = DecisionCache(), DecisionCache()
+    out = []
+    for fields in steps:
+        card.reset_stats()
+        cpu.reset_stats()
+        got, want = run(fields, card, cuda_device), run(fields, cpu, "cpu")
+        assert card.events == cpu.events
+        _close_decisions(got, want)
+        out.append(got)
+    assert out[1] == out[0]
+    assert card.events[names[0]] == card.events[names[1]] == "invalidated"
+    assert {e["fingerprint"]["digest"] for e in card.to_manifest()["entries"]} == {
+        e["fingerprint"]["digest"] for e in cpu.to_manifest()["entries"]}
+
+
+def _ckpt_tree():
+    rng = np.random.default_rng(13)
+    fields = _pytree_fields()
+    return {
+        "f": fields,
+        "f64": np.cumsum(rng.standard_normal((64, 64)), 0),
+        "bf16": torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32)).to(torch.bfloat16),
+        "ids": rng.integers(0, 1000, (128,)).astype(np.int32),
+        "lr": 3e-4,
+        "card": torch.from_numpy(_field((40, 40), 12)).to("cuda"),
+    }
+
+
+def _rows(path):
+    import json
+
+    with open(f"{path}/manifest.json") as f:
+        rows = json.load(f)["fields"]
+    with open(f"{path}/data.bin", "rb") as f:
+        blob = f.read()
+    return {r["name"]: (r, blob[r["offset"]:r["offset"] + r["nbytes"]]) for r in rows}
+
+
+@pytest.mark.parametrize("device_encode", [False, True])
+def test_checkpoint_on_card_equals_cpu(cuda_device, tmp_path, device_encode):
+    """A `CheckpointManager` save on the card against the same save on the
+    CPU: the same rows and bounds, decisions within the golden tolerances
+    (the card's float32 reductions round the estimated rates otherwise),
+    and the same bytes for every field whose bounds are the same, so the
+    same `data.bin` when all are; K1/K2 launched by the device encode;
+    `restore` on the card within each field's bound, raw leaves bit for
+    bit; a warm save all hits."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+
+    tree = _ckpt_tree()
+    cfg = dict(policy=Policy.fixed_accuracy(eb_rel=EB_REL), cache=True, device_encode=device_encode)
+    card = CheckpointManager(CheckpointConfig(str(tmp_path / "card"), **cfg), device=cuda_device)
+    lorenzo.reset_launches()
+    path = card.save(0, tree)
+    launches = dict(lorenzo.LAUNCHES)
+    cpu_tree = dict(tree, card=tree["card"].cpu())
+    other = CheckpointManager(CheckpointConfig(str(tmp_path / "cpu"), **cfg), device="cpu")
+    got, want = _rows(path), _rows(other.save(0, cpu_tree))
+    assert list(got) == list(want)
+    for name, (row, data) in got.items():
+        wrow, wdata = want[name]
+        assert (row["codec"], row["dtype"], row["shape"], row["eb"]) == (
+            wrow["codec"], wrow["dtype"], wrow["shape"], wrow["eb"]), name
+        entry, wentry = card.cache.entries.get(name), other.cache.entries.get(name)
+        if entry is None:
+            assert data == wdata, name  # raw rows
+            continue
+        _close_decisions([entry.to_selection()], [wentry.to_selection()])
+        if entry.selection["eb_sz"] == wentry.selection["eb_sz"]:
+            # the stream is a function of the codec and the bounds only
+            assert data == wdata, name
+    # K1/K2 encode the 2-D and 3-D SZ fields (a 1-D field's codes are torch ops)
+    n_sz = sum(1 for r, _ in got.values()
+               if r["codec"] == "sz" and len(_folded(tuple(r["shape"]))) > 1)
+    k12 = launches["lorenzo2d_encode"] + launches["lorenzo3d_encode"]
+    assert k12 == (n_sz if device_encode else 0)
+    step, flat = card.restore()
+    assert step == 0
+    for name, (row, _) in got.items():
+        y = flat[name]
+        assert y.device.type == "cuda", name
+        if row["codec"] in ("sz", "zfp"):
+            x = tree["f"][name.split("/", 1)[1]] if name.startswith("f/") else (
+                tree["f64"] if name == "f64" else tree["card"].cpu().numpy())
+            err = float((y.double().cpu() - torch.as_tensor(np.asarray(x), dtype=torch.float64)).abs().max())
+            assert err <= row["eb"], name
+    assert torch.equal(flat["bf16"].cpu().view(torch.int16), tree["bf16"].view(torch.int16))
+    assert torch.equal(flat["ids"].cpu(), torch.from_numpy(tree["ids"]))
+    card.cache.reset_stats()
+    card.save(1, tree)
+    assert card.cache.stats()["hits"] == len(card.cache.entries) > 0
+
+
+def test_async_save_on_card_snapshots_at_the_call(cuda_device, tmp_path):
+    """A card tensor overwritten in place right after `async_save` returns
+    (on the same stream) is saved with its values at the call."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+
+    x = _field((256, 512), 21)
+    w = torch.from_numpy(x).to(cuda_device)
+    mgr = CheckpointManager(CheckpointConfig(
+        str(tmp_path), policy=Policy.fixed_accuracy(eb_rel=EB_REL), device_encode=True),
+        device=cuda_device)
+    mgr.async_save(0, {"w": w})
+    w.mul_(1000.0)
+    mgr.wait()
+    _, flat = mgr.restore()
+    (row, _), = _rows(f"{tmp_path}/step_000000000").values()
+    assert float((flat["w"].double().cpu() - torch.from_numpy(x).double()).abs().max()) <= row["eb"]

@@ -31,6 +31,7 @@ from repro.core import api as r_api
 from repro.core import policy as r_policy
 from repro_torch.core import Policy, PolicySet
 from repro_torch.core import api as p_api
+from repro_torch.core.decision_cache import DecisionCache
 from repro_torch.core import device_encode as p_de
 from repro_torch.core import policy as p_policy
 from repro_torch.core import pytree as p_tree
@@ -283,14 +284,14 @@ def test_policy_set_rejected_by_compress():
     (lambda t: p_api.compress_pytree(t, Policy.fixed_psnr(60.0), device="cpu"), "item 7"),
     (lambda t: p_api.compress_pytree(t, Policy.fixed_ratio(8.0), device="cpu"), "item 7"),
     (lambda t: p_api.compress(t["a"], Policy.fixed_ssim(0.99), device="cpu"), "item 7"),
-    (lambda t: p_api.compress_pytree(t, cache=object(), device="cpu"), "item 8"),
+    (lambda t: p_api.compress_pytree(t, cache=DecisionCache(), device="cpu"), "item 8"),
     (lambda t: p_api.compress_pytree(t, sharded=True, device="cpu"), "item 14"),
 ])
 def test_not_yet_ported_arguments_raise(call, item):
-    """The warm path (item 8) and the shard-local engine (item 14) raise
-    naming their ROADMAP item; the target modes (item 7) are ported and
+    """The shard-local engine (item 14) raises naming its ROADMAP item; the
+    target modes (item 7) and the warm path (item 8) are ported and
     compress."""
-    if item == "item 7":
+    if item in ("item 7", "item 8"):
         out = call({"a": _field()})
         cf = out.fields["a"] if isinstance(out, p_api.CompressedTree) else out
         assert cf.codec in ("sz", "zfp") and cf.selection is not None

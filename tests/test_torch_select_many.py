@@ -206,8 +206,17 @@ def test_select_many_argument_errors():
             mod.select_many(x, policy=pol.fixed_psnr(60.0), **kw)
         with pytest.raises(ValueError, match="not both"):
             mod.select_many(x, eb_rel=1e-3, policy=pol.fixed_accuracy(), **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        p_sel.select_many(x, eb_rel=1e-3, cache=object(), names=["a"], device="cpu")
+    # the warm path (ROADMAP item 8) is ported: a cache needs one name per
+    # field, then replays the cold decision
+    from repro_torch.core.decision_cache import DecisionCache
+
+    cache = DecisionCache()
+    with pytest.raises(ValueError, match="names"):
+        p_sel.select_many(x, eb_rel=1e-3, cache=cache, device="cpu")
+    cold = p_sel.select_many(x, eb_rel=1e-3, device="cpu")
+    for _ in range(2):
+        assert p_sel.select_many(x, eb_rel=1e-3, cache=cache, names=["a"], device="cpu") == cold
+    assert cache.events == {"a": "hit"}
 
 
 def test_tensor_fields_and_select_and_compress():
