@@ -63,7 +63,20 @@ phase that goes wrong:
    and evicted again (all decision-cache hits); eight flat (2048, 1024)
    pages through `bot_compress_kv` (K5); four stacks through the device
    encoder and four raw;
-11. one JSON line with every kernel's launches on its path, error, times,
+11. serving at the full width of phi4-mini-3.8b, weights drawn on the
+   card from a generator seeded 0: `[serve-static]` runs
+   `launch.serve.main` on the contiguous cache (batch 4, prompt 64, gen
+   32); `[serve]` runs `run_continuous` (8 requests, prompts of 1024 and
+   256 tokens, 64 new tokens each, Poisson arrivals at 0.25 per decode
+   step, 4 slots, 16-token pages, `serving_policies(8.0)` with the long
+   threshold at 512, an arena of `SERVE_ARENA_PAGES` pages), checking that
+   every request completes with 64 tokens, that the arena evicts and
+   restores, that long requests resolve to fixed_ratio and short ones to
+   raw, that every restored lossy stack is within its bound of a copy
+   taken at evict time, and that K6 ran the evictions; `[serve-raw]`
+   runs the same requests under `Policy.raw()` on the default arena and
+   on the small one, whose token streams must be equal;
+12. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -78,7 +91,9 @@ turns (parent, change, change, parent) to compare them on one card.
     python3 chip_smoke.py --lorenzo-times [--src OTHER_CHECKOUT/src]
 
 does the same for K1/K2 (`lorenzo_times`), and `--kv-times` for the KV
-page tier's evict and restore (`kv_times`).
+page tier's evict and restore (`kv_times`). `--serve` runs only the
+serving phases (11), and `--decode-profile` traces full-width decode
+steps (`decode_profile`).
 """
 
 from __future__ import annotations
@@ -126,6 +141,19 @@ KV_RATIO = 8.0
 #: layer's K of the request as a flat page (K5)
 K6_PATH_SHAPE = (N_LAYERS, PAGE_TOKENS, N_KV_HEADS * HEAD_DIM)
 K5_PATH_SHAPE = (REQUEST_TOKENS, N_KV_HEADS * HEAD_DIM)
+#: the serving phases (`launch.serve` flags): phi4-mini-3.8b at full width
+SERVE_ARCH = ["--arch", "phi4-mini-3.8b"]
+SERVE_STATIC = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
+SERVE_CONTINUOUS = ["--continuous", "--requests", "8", "--prompt-len", "1024", "--gen", "64",
+                    "--rate", "0.25", "--slots", "4", "--page-tokens", "16",
+                    "--long-threshold", "512", "--target-ratio", "8.0"]
+#: The page schedule depends only on the prompt lengths, the arrivals and
+#: the arena (no token is EOS), so a CPU run of `run_continuous` at any
+#: width gives it (tests/test_torch_batcher.py::test_full_width_serving_
+#: schedule): with 136 pages (twice a 1088-token context) nothing is
+#: evicted, since admission waits for free pages; 84 evicts nine times and
+#: reuses 554 frozen pages.
+SERVE_ARENA_PAGES = 84
 KERNELS = {  # name: (TPU kernel it replaces, CUDA source)
     "lorenzo2d_encode": ("src/repro/kernels/lorenzo.py:54", "src/repro_torch/csrc/lorenzo.cu"),
     "lorenzo3d_encode": ("src/repro/kernels/lorenzo.py:143", "src/repro_torch/csrc/lorenzo.cu"),
@@ -818,6 +846,318 @@ def phase_kv(torch, np, dev, times: dict | None = None):
     return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
 
 
+def phase_serve_cpu_vs_card(torch, np, dev):
+    """The served model at a small size against the same weights on the
+    CPU: the reduced phi4-mini-3.8b at float32 (TF32 off), a 64-token
+    prefill and 8 cached decode steps fed the CPU's greedy tokens. Logits
+    within rtol 1e-4 and atol 1e-5 * max|logit| after the prefill, and
+    atol 1e-3 * max|logit| after decode steps (the caches hold bfloat16,
+    where a float32 value an ulp apart can round to the other neighbour);
+    the same greedy token wherever the CPU's top-2 margin exceeds twice
+    that."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+
+    cfg = reduced_for_smoke(get_config("phi4-mini-3.8b")).scaled(dtype="float32")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+    params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab, (2, 64)),
+                           dtype=torch.int32)
+    feeds = [toks]
+
+    def run(model, p):
+        cache = model.init_cache(2, 72)
+        out = []
+        for i in range(9):
+            if i == len(feeds):  # the CPU run picks the greedy tokens both runs take
+                feeds.append(torch.argmax(out[-1], dim=-1)[:, None].to(torch.int32))
+            lg, cache = model.forward(p, {"tokens": feeds[i].to(model.device)}, cache)
+            out.append(lg[:, -1].cpu())
+        return out
+
+    want = run(cpu, params)
+    got = run(card, mnn.tree_map(lambda a: a.to(dev), params))
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        tol = (1e-4 * w.abs() + 1e-5 * scale) if i == 0 else 1e-3 * scale
+        check(bool(((g - w).abs() <= tol).all()), f"serve: card logits differ from the CPU's at step {i}")
+        top = torch.topk(w, 2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 2 * 1e-3 * scale
+        check(torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]), f"serve: card token differs at {i}")
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    log("serve-cpu-vs-card", f"reduced {cfg.name} at float32: prefill and 8 decode steps on the "
+        f"card within tolerance of the CPU (max err / max|logit| {worst:.3g})")
+
+
+def phase_serve_static(torch, np, dev):
+    """The served model at a small size on the card against the CPU, then
+    `launch.serve.main` on the contiguous cache at full width: prefill ms,
+    decode ms per step and tok/s, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    phase_serve_cpu_vs_card(torch, np, dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(SERVE_ARCH + SERVE_STATIC)
+    args = serve.parse_args(SERVE_ARCH + SERVE_STATIC)
+    toks = out["tokens"]
+    vocab = get_config(args.arch).vocab
+    check(toks.shape == (args.batch, args.gen) and 0 <= toks.min() and toks.max() < vocab,
+          f"serve-static: tokens {toks.shape}, range [{toks.min()}, {toks.max()}]")
+    steps = args.gen - 1
+    log("serve-static", json.dumps(dict(
+        arch=args.arch, batch=args.batch, prompt=args.prompt_len, gen=args.gen,
+        prefill_ms=out["prefill_s"] * 1e3, decode_ms_per_step=out["decode_s"] * 1e3 / steps,
+        decode_tok_s=args.batch * steps / out["decode_s"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)))
+
+
+class ServeProbe:
+    """Times the batcher's prefill, decode, evict and resume, and each
+    stack's `decompress_page` within a resume (each ending in a
+    synchronize), and keeps a copy of every page stack evicted and every
+    stack restored, for `check_restored`. Patches `ContinuousBatcher` and
+    `kvcomp` while in use."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {"prefill": [], "decode": [], "evict": [], "resume": [], "decompress": []}
+        self.prefill_len, self.evict_stacks, self.evict_mode = [], [], []
+        self.copies, self.stored, self.back = {}, [], []
+
+    def _timed(self, key, fn):
+        """`fn` timed; a call that returns False (a resume refused for want
+        of pages) is not counted."""
+        torch = self.torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            if out is not False:
+                self.ms[key].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return run
+
+    def __enter__(self):
+        from repro_torch.runtime import batcher, kvcomp
+
+        cls = batcher.ContinuousBatcher
+        self._saved = [(cls, n, getattr(cls, n)) for n in ("_prefill", "_decode", "_evict", "_resume")]
+        self._saved += [(kvcomp, n, getattr(kvcomp, n)) for n in ("compress_page", "decompress_page")]
+        prefill, evict = cls._prefill, cls._evict
+        compress, decompress = kvcomp.compress_page, kvcomp.decompress_page
+
+        def counted_prefill(b, prompt):
+            self.prefill_len.append(len(prompt))
+            return prefill(b, prompt)
+
+        def counted_evict(b, slot):
+            n = len(self.stored)
+            self.evict_mode.append(b.requests[b.slot_req[slot]].policy.mode)
+            evict(b, slot)
+            self.evict_stacks.append(len(self.stored) - n)
+
+        def kept_compress(page, policy, **kw):
+            cp = compress(page, policy, **kw)
+            self.copies[id(cp)] = page.clone()
+            self.stored.append(cp)
+            return cp
+
+        def kept_decompress(cp, **kw):
+            out = decompress(cp, **kw)
+            self.back.append((cp, out))
+            return out
+
+        cls._prefill = self._timed("prefill", counted_prefill)
+        cls._decode = self._timed("decode", cls._decode)
+        cls._evict = self._timed("evict", counted_evict)
+        cls._resume = self._timed("resume", cls._resume)
+        kvcomp.compress_page = kept_compress
+        kvcomp.decompress_page = self._timed("decompress", kept_decompress)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+    def check_restored(self, tag: str) -> dict:
+        """Every restored stack against the copy taken when it was evicted:
+        a raw one bit for bit, a lossy one within its bound plus the arena's
+        bfloat16 rounding. Returns the restored stacks by codec."""
+        torch = self.torch
+        count = {"raw": 0, "bot": 0}
+        for cp, out in self.back:
+            page = self.copies[id(cp)]
+            check(out.shape == page.shape and out.dtype == page.dtype,
+                  f"{tag}: restored {out.dtype} {tuple(out.shape)}")
+            if cp.codec == "raw":
+                check(torch.equal(out.view(torch.int16), page.contiguous().view(torch.int16)),
+                      f"{tag}: a raw stack did not restore bit for bit")
+            else:
+                back = out.float()
+                err = (back - page.float()).abs()
+                check(bool((err <= cp.eb + 2.0**-8 * back.abs()).all()),
+                      f"{tag}: a restored stack is off by {float(err.max())} > eb {cp.eb}")
+            count[cp.codec] += 1
+        return count
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def phase_serve(torch, np, dev):
+    """Continuous serving at full width with compress-on-evict (K6).
+    Returns K6's launches and (args, cfg, model, params) for the raw runs."""
+    from repro_torch.kernels import bot4
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SERVE_ARCH + SERVE_CONTINUOUS
+                            + ["--arena-pages", str(SERVE_ARENA_PAGES)])
+    t0 = time.perf_counter()
+    cfg, model, params = serve.build(args)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    log("serve", f"{args.arch}: {n_params:,} float32 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    bot4.reset_launches()
+    with ServeProbe(torch) as probe:
+        out = serve.run_continuous(args, cfg, model, params)
+    k6 = bot4.LAUNCHES["bot3d_fused"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    reqs = out["requests"]
+    check(out["completed"] == len(reqs) == args.requests, f"serve: {out['completed']} completed")
+    check(all(len(r.out) == args.gen for r in reqs), "serve: a request got another count of tokens")
+    check(out["evictions"] > 0 and out["restores"] > 0,
+          f"serve: evictions {out['evictions']}, restores {out['restores']}")
+    for r in reqs:
+        want = "fixed_ratio" if len(r.prompt) + r.max_new >= args.long_threshold else "raw"
+        check(r.policy.mode == want, f"serve: request {r.rid} resolved to {r.policy.mode}")
+    restored = probe.check_restored("serve")
+    lossy = [cp for cp in probe.stored if cp.codec == "bot"]
+    check(len(lossy) >= 1 and restored["bot"] >= 1, "serve: no lossy stack evicted and restored")
+    check(k6 == len(lossy), f"serve: K6 launched {k6} times for {len(lossy)} lossy stacks")
+    per_stack = {mode: [ms / n for ms, n, m in zip(probe.ms["evict"], probe.evict_stacks,
+                                                   probe.evict_mode) if n and m == mode]
+                 for mode in ("fixed_ratio", "raw")}
+    by_len = {n: [ms for ms, m in zip(probe.ms["prefill"], probe.prefill_len) if m == n]
+              for n in sorted(set(probe.prefill_len))}
+    log("serve", json.dumps(dict(
+        requests=len(reqs), steps=out["steps"], arena_pages=args.arena_pages,
+        decode_tok_s=out["decode_tok_s"], decode_ms_per_step=_median(probe.ms["decode"]),
+        prefill_ms={n: _median(v) for n, v in by_len.items()},
+        evict_ms_per_request=_median(probe.ms["evict"]),
+        evict_ms_per_stack={m: _median(v) for m, v in per_stack.items()},
+        evict_ms=probe.ms["evict"], evict_stacks=probe.evict_stacks, evict_mode=probe.evict_mode,
+        restore_ms_each=probe.ms["resume"], decompress_ms_per_stack=_median(probe.ms["decompress"]),
+        restore_ms=_median(probe.ms["resume"]), evictions=out["evictions"],
+        restores=out["restores"], page_reuses=out["page_reuses"],
+        decision_hits=out["decision_hits"], peak_resident_kv_bytes=out["peak_resident_kv_bytes"],
+        lossy_stacks=len(lossy), lossy_store_bytes=sum(cp.nbytes for cp in lossy),
+        lossy_raw_bytes=sum(probe.copies[id(cp)].numel() * 2 for cp in lossy),  # bfloat16
+        raw_stacks=len(probe.stored) - len(lossy), restored=restored,
+        k6_launches=k6, peak_gib=peak_gib)))
+    return k6, (args, cfg, model, params)
+
+
+def phase_serve_raw(torch, np, dev, served):
+    """The same requests under `Policy.raw()` on the default arena and on
+    the small one: eviction at raw must not change a token."""
+    from repro_torch.core.policy import Policy
+    from repro_torch.kernels import bot4
+    from repro_torch.launch import serve
+
+    args, cfg, model, params = served
+    runs = {}
+    bot4.reset_launches()
+    for label, pages in (("calm", None), ("tight", args.arena_pages)):
+        run_args = serve.parse_args(SERVE_ARCH + SERVE_CONTINUOUS
+                                    + ([] if pages is None else ["--arena-pages", str(pages)]))
+        with ServeProbe(torch) as probe:
+            out = serve.run_continuous(run_args, cfg, model, params, policies=Policy.raw())
+        runs[label] = out
+        log("serve-raw", json.dumps(dict(
+            arena=label, arena_pages=pages, steps=out["steps"], decode_tok_s=out["decode_tok_s"],
+            decode_ms_per_step=_median(probe.ms["decode"]), evictions=out["evictions"],
+            restores=out["restores"], page_reuses=out["page_reuses"],
+            evict_ms_per_request=_median(probe.ms["evict"]), restore_ms=_median(probe.ms["resume"]),
+            restored=probe.check_restored(f"serve-raw {label}"),
+            peak_resident_kv_bytes=out["peak_resident_kv_bytes"])))
+    check(runs["calm"]["evictions"] == 0, "serve-raw: the default arena evicted")
+    check(runs["tight"]["evictions"] > 0 and runs["tight"]["restores"] > 0,
+          "serve-raw: the small arena did not evict")
+    check(bot4.LAUNCHES["bot3d_fused"] == 0, "serve-raw: a raw eviction launched K6")
+    for a, b in zip(runs["calm"]["requests"], runs["tight"]["requests"]):
+        check(a.out == b.out, f"serve-raw: request {a.rid}'s tokens changed under eviction")
+    log("serve-raw", f"{len(runs['calm']['requests'])} token streams equal with and without "
+        f"{runs['tight']['evictions']} raw evictions")
+
+
+def decode_profile(torch, np, dev) -> dict:
+    """Where a full-width decode step's time goes (`[serve-static]`'s
+    shapes: batch 4 after a 64-token prefill): host ms a step over 5 steps,
+    then over 5 steps traced by `torch.profiler` the device's busy ms a
+    step (its kernels' summed durations), its idle share of the traced
+    steps, the kernels launched a step and the 12 ops with the most device
+    time (ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    args = serve.parse_args(SERVE_ARCH + SERVE_STATIC)
+    cfg, model, params = serve.build(args)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab, (4, 64)),
+                           dtype=torch.int32, device=dev)
+    cache = model.init_cache(4, 64 + 16)
+    logits, cache = make_prefill_step(model)(params, {"tokens": toks}, cache)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    decode = make_decode_step(model)
+    for _ in range(3):
+        nxt, cache = decode(params, nxt, cache)
+    steps = 5
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        nxt, cache = decode(params, nxt, cache)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            nxt, cache = decode(params, nxt, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    avgs = sorted(prof.key_averages(), key=dev_us, reverse=True)[:12]
+    return dict(
+        untraced_ms_per_step=untraced_ms, traced_ms_per_step=wall_ms,
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms, kernels_per_step=len(kernels) / steps,
+        top_ops_device_ms_per_step={e.key: dev_us(e) / 1e3 / steps for e in avgs},
+        top_ops_calls_per_step={e.key: e.count / steps for e in avgs})
+
+
+def serve_only(torch, np, dev) -> dict:
+    """The serving phases alone; returns K6's launches from `[serve]`."""
+    phase_serve_static(torch, np, dev)
+    k6, served = phase_serve(torch, np, dev)
+    phase_serve_raw(torch, np, dev, served)
+    return {"serve_k6_launches": k6}
+
+
 #: the pytree phase's leaves in the reference's order (`jax.tree_util`)
 PYTREE_NAMES = [
     "atm/ATM_00", "atm/ATM_01", "atm/ATM_02", "atm/ATM_03", "bf16", "const", "f64",
@@ -1500,6 +1840,11 @@ def main() -> int:
     parser.add_argument("--select-profile", action="store_true",
                         help="only time and profile select_many on the 17 paper-sized fields "
                         "(select_profile)")
+    parser.add_argument("--serve", action="store_true",
+                        help="only run the serving phases (serve_only)")
+    parser.add_argument("--decode-profile", action="store_true",
+                        help="only trace full-width decode steps (decode_profile) and print "
+                        "where their time goes as JSON")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory to import repro_torch from (another checkout's src/, "
                         "to time two commits in one run)")
@@ -1530,7 +1875,8 @@ def main() -> int:
     log("build", f"{sorted(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
     for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times),
                           (args.zfp_peak, zfp_peak), (args.select_profile, select_profile),
-                          (args.kv_times, kv_times)):
+                          (args.kv_times, kv_times), (args.serve, serve_only),
+                          (args.decode_profile, decode_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)
@@ -1562,6 +1908,11 @@ def main() -> int:
     phase_cpu_vs_card(torch, np, dev)
     phase_targets_cpu_vs_card(torch, np, dev)
     launches.update(phase_kv(torch, np, dev))
+    phase_serve_static(torch, np, dev)
+    k6_serve, served = phase_serve(torch, np, dev)
+    launches["bot3d_fused"] += k6_serve
+    phase_serve_raw(torch, np, dev, served)
+    del served
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():

@@ -317,8 +317,18 @@ def policy_set_spec(pset: PolicySet) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Serving-tier policies
+# Serving-tier policies and request resolution (DESIGN.md §9)
 # ---------------------------------------------------------------------------
+
+
+def request_kv_name(rid: int, context_len: int, long_threshold: int) -> str:
+    """Canonical per-request KV-policy leaf name for the serving tier:
+    ``kv/long/<rid>`` when the request's total context (prompt + budgeted
+    new tokens) reaches `long_threshold`, else ``kv/short/<rid>``. The
+    batcher resolves this name against its `PolicySet` once at admission,
+    so the page policy holds for the request's whole lifetime."""
+    kind = "long" if context_len >= long_threshold else "short"
+    return f"kv/{kind}/{rid}"
 
 
 def serving_policies(

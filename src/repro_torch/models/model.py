@@ -1,0 +1,189 @@
+"""Model assembly: the dense decoder-only LM, cache-aware, declared via
+P-descriptors, in torch.
+
+Port of `repro.models.model` for configs without MoE and MLA (dense and
+the vision-stub VLM decoder). Layers are stacked on a leading axis as in
+the reference and run as a Python loop over that axis.
+
+Public API (built by `build_model(cfg, device=...)`):
+  model.desc()                          -> param descriptor tree
+  model.forward(params, batch, cache)   -> (logits, new_cache)
+  model.loss(params, batch)             -> (loss, metrics), forward only
+  model.cache_desc(batch, max_len)      -> cache TensorSpec tree
+  model.init_cache(batch, max_len)      -> zero-initialized cache
+  model.decode_step(params, tok, cache) -> (logits, new_cache)
+
+The model's `device` (default the GPU, see `repro_torch.device`) is where
+its caches live; params and batches are expected there too. A cache's
+K/V tensors are updated in place by `forward` (see `blocks`): the
+returned cache holds the same tensors with the new rows written, and a
+new position clock.
+
+xLSTM, the Zamba2-style hybrid, encoder-decoder, MoE and MLA models are
+ROADMAP queue A item 12; `build_model` raises for them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import device as _device
+from . import blocks, nn
+from .config import ModelConfig
+from .nn import P, TensorSpec, dense, rms_norm, shard
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _zeros_cache(desc_tree, device: torch.device):
+    return nn.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), desc_tree)
+
+
+def _stack_specs(one: dict, n: int) -> dict:
+    return {k: TensorSpec((n,) + s.shape, s.dtype) for k, s in one.items() if k != "len"}
+
+
+class BaseLM:
+    def __init__(self, cfg: ModelConfig, device=None):
+        self.cfg = cfg
+        self.device = _device.resolve(device)
+
+    # --- embedding / head -------------------------------------------------
+    def _embed_desc(self) -> dict:
+        cfg = self.cfg
+        out = {
+            "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), "embed"),
+            "final_norm": P((cfg.d_model,), ("norm",), "ones"),
+        }
+        if not cfg.tie_embeddings:
+            out["lm_head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+        if cfg.frontend == "vision":
+            out["patch_proj"] = P((cfg.d_model, cfg.d_model), ("embed", "embed"))
+        if cfg.frontend == "audio":
+            out["frame_proj"] = P((cfg.d_model, cfg.d_model), ("embed", "embed"))
+        return out
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"]].to(_dt(cfg))
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = dense(batch["patch_embeds"].to(_dt(cfg)), params["patch_proj"])
+            x = torch.cat([pe, x], dim=1)
+        return shard(x, "batch", None, None)
+
+    def _logits(self, params, x) -> torch.Tensor:
+        cfg = self.cfg
+        xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.matmul(xn, head.to(xn.dtype))
+        return shard(logits.to(torch.float32), "batch", None, "vocab")
+
+    # --- losses ------------------------------------------------------------
+    def loss(self, params, batch):
+        logits, _ = self.forward(params, batch, cache=None)
+        labels = batch["labels"]
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch:
+            # logits cover [patches, tokens]; labels only the token part
+            logits = logits[:, -labels.shape[1]:]
+        mask = (labels >= 0).to(torch.float32)
+        lab = torch.clamp(labels, min=0).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return loss, {"loss": loss, "tokens": torch.sum(mask)}
+
+    # --- cache -------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int):
+        return _zeros_cache(self.cache_desc(batch, max_len), self.device)
+
+    def decode_step(self, params, tokens, cache):
+        return self.forward(params, {"tokens": tokens}, cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# decoder-only transformer (dense / vlm)
+# ---------------------------------------------------------------------------
+
+
+class TransformerLM(BaseLM):
+    """Dense decoder-only LM with GQA attention."""
+
+    def desc(self):
+        cfg = self.cfg
+        out = self._embed_desc()
+        layer = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
+        out["blocks"] = nn.stack_layers([layer] * cfg.n_layers)
+        return out
+
+    def _block(self, p, x, positions, cache, window=None):
+        cfg = self.cfg
+        a, new_c = blocks.apply_attn(p["attn"], x, positions, cfg, cache=cache, window=window)
+        x = x + a
+        x = x + blocks.apply_mlp(p["mlp"], x, cfg)
+        return x, new_c
+
+    def forward(self, params, batch, cache=None):
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        b, l, _ = x.shape
+        steps = torch.arange(l, device=x.device)
+        pos0 = cache["pos"] if cache is not None else 0
+        # paged serving cache (DESIGN.md §9): per-slot clocks (B,) + page
+        # table, threaded into every layer's cache view
+        paged = cache is not None and "page_table" in cache
+        positions = pos0[:, None] + steps[None, :] if paged else pos0 + steps[None, :]
+        for i in range(cfg.n_layers):
+            cl = None
+            if cache is not None:
+                cl = dict(nn.layer(cache["blocks"], i), len=pos0)
+                if paged:
+                    cl["ptab"] = cache["page_table"]
+            x, _ = self._block(nn.layer(params["blocks"], i), x, positions, cl,
+                               window=cfg.attn_window)
+        new_cache = None
+        if cache is not None:
+            # the layers wrote their rows into cache["blocks"] in place
+            new_cache = {"pos": pos0 + l, "blocks": cache["blocks"]}
+            if paged:
+                new_cache["page_table"] = cache["page_table"]
+        return self._logits(params, x), new_cache
+
+    def cache_desc(self, batch: int, max_len: int):
+        cfg = self.cfg
+        return {
+            "pos": TensorSpec((), torch.int32),
+            "blocks": _stack_specs(blocks.attn_cache_desc(cfg, batch, max_len), cfg.n_layers),
+        }
+
+    # --- paged serving cache (DESIGN.md §9) --------------------------------
+    def paged_cache_desc(self, slots: int, pages: int, page_tokens: int, max_pages: int):
+        """Cache specs for the paged serving tier: per-slot position clocks +
+        a (slots, max_pages) page table over a shared page arena of `pages`
+        allocatable pages per layer (page 0 is reserved scratch, so arenas
+        are sized pages+1)."""
+        cfg = self.cfg
+        one = blocks.paged_attn_cache_desc(cfg, pages, page_tokens)
+        return {
+            "pos": TensorSpec((slots,), torch.int32),
+            "page_table": TensorSpec((slots, max_pages), torch.int32),
+            "blocks": _stack_specs(one, cfg.n_layers),
+        }
+
+    def init_paged_cache(self, slots: int, pages: int, page_tokens: int, max_pages: int):
+        return _zeros_cache(self.paged_cache_desc(slots, pages, page_tokens, max_pages),
+                            self.device)
+
+
+def build_model(cfg: ModelConfig, device=None) -> BaseLM:
+    """The model for `cfg` on `device` (default the GPU): the dense
+    decoder-only families build; the others raise NotImplementedError."""
+    kind = ("an encoder-decoder" if cfg.encdec else "xLSTM" if cfg.xlstm is not None
+            else "a hybrid" if cfg.hybrid is not None else "MoE" if cfg.moe is not None
+            else "MLA" if cfg.mla is not None else None)
+    if kind is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} model is not ported yet (ROADMAP queue A item 12)"
+        )
+    return TransformerLM(cfg, device)

@@ -679,3 +679,102 @@ def test_async_save_on_card_snapshots_at_the_call(cuda_device, tmp_path):
     _, flat = mgr.restore()
     (row, _), = _rows(f"{tmp_path}/step_000000000").values()
     assert float((flat["w"].double().cpu() - torch.from_numpy(x).double()).abs().max()) <= row["eb"]
+
+
+# -- serving: the dense decoder and the paged batcher on the card -----------
+
+
+def _serving_model(device, dtype="float32"):
+    """The reduced 2-layer smollm-360m of the batcher tests, its weights
+    drawn on the CPU from a seeded generator and copied to `device`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+
+    cfg = reduced_for_smoke(get_config("smollm-360m")).scaled(n_layers=2, dtype=dtype)
+    cpu_model = build_model(cfg, device="cpu")
+    params = mnn.init_tree(cpu_model.desc(), torch.Generator().manual_seed(0), device="cpu")
+    if device.type == "cpu":
+        return cfg, cpu_model, params
+    return cfg, build_model(cfg, device=device), mnn.tree_map(lambda a: a.to(device), params)
+
+
+def _serving_prompts(cfg, seed, n, length):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab, length).astype(np.int32) for _ in range(n)]
+
+
+def test_model_logits_on_card_equal_cpu(cuda_device):
+    """float32 logits and loss of the forward without a cache on the card
+    against the same weights on the CPU (TF32 off, so only the order of
+    float32 sums differs): rtol 1e-4, atol 1e-5 * max|logit|."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model, params = _serving_model(cuda_device)
+    _, cpu_model, cpu_params = _serving_model(torch.device("cpu"))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
+    ref, _ = cpu_model.forward(cpu_params, batch)
+    got, _ = model.forward(params, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    loss = model.loss(params, {k: v.to(cuda_device) for k, v in batch.items()})[0]
+    np.testing.assert_allclose(float(loss), float(cpu_model.loss(cpu_params, batch)[0]), rtol=1e-5)
+
+
+def test_paged_decode_on_card_equals_single_stream(cuda_device):
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, model, params = _serving_model(cuda_device)
+    b = ContinuousBatcher(model, params, slots=4, max_len=32, eos_id=-1, page_tokens=8)
+    assert b.paged and b.cache["blocks"]["k"].device.type == "cuda"
+    reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(_serving_prompts(cfg, 5, 3, 8))]
+    b.run(reqs)
+    for r in reqs:
+        cache = model.init_cache(1, 32)
+        logits, cache = model.forward(
+            params, {"tokens": torch.from_numpy(r.prompt)[None].to(cuda_device)}, cache)
+        toks = [int(torch.argmax(logits[0, -1]))]
+        for _ in range(5):
+            lg, cache = model.forward(params, {"tokens": torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=cuda_device)}, cache)
+            toks.append(int(torch.argmax(lg[0, -1])))
+        assert r.out == toks, r.rid
+
+
+def test_raw_evict_restore_on_card_is_invisible(cuda_device):
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, model, params = _serving_model(cuda_device)
+    prompts = _serving_prompts(cfg, 6, 4, 12)
+
+    def run(arena_pages):
+        b = ContinuousBatcher(model, params, slots=2, max_len=32, eos_id=-1, page_tokens=8,
+                              arena_pages=arena_pages, policies=Policy.raw())
+        reqs = [Request(rid=i, prompt=p, max_new=20) for i, p in enumerate(prompts)]
+        b.run(reqs)
+        return reqs, b
+
+    calm_reqs, calm = run(None)
+    tight_reqs, tight = run(5)
+    assert calm.stats["evictions"] == 0
+    assert tight.stats["evictions"] > 0 and tight.stats["restores"] > 0
+    assert [r.out for r in calm_reqs] == [r.out for r in tight_reqs]
+
+
+def test_lossy_serving_on_card_launches_k6(cuda_device):
+    """Long requests under `serving_policies(8)` evict their page stacks
+    through K6 (one launch per lossy stack) and complete."""
+    from repro_torch.core.policy import serving_policies
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, model, params = _serving_model(cuda_device, dtype="bfloat16")
+    b = ContinuousBatcher(model, params, slots=2, max_len=32, eos_id=-1, page_tokens=8,
+                          arena_pages=5, policies=serving_policies(8.0), long_threshold=24)
+    reqs = [Request(rid=i, prompt=p, max_new=20) for i, p in enumerate(_serving_prompts(cfg, 6, 4, 12))]
+    before = bot4.LAUNCHES["bot3d_fused"]
+    b.run(reqs)
+    assert all(r.done and len(r.out) == 20 and r.policy.mode == "fixed_ratio" for r in reqs)
+    assert b.stats["evictions"] > 0 and b.stats["restores"] > 0
+    lossy = sum(r.evictions for r in reqs)
+    assert bot4.LAUNCHES["bot3d_fused"] - before >= lossy
