@@ -76,7 +76,26 @@ phase that goes wrong:
    taken at evict time, and that K6 ran the evictions; `[serve-raw]`
    runs the same requests under `Policy.raw()` on the default arena and
    on the small one, whose token streams must be equal;
-12. one JSON line with every kernel's launches on its path, error, times,
+12. training at the full width and depth of smollm-360m (409.0 M float32
+   parameters drawn on the card from a generator seeded 0): `[train]` runs
+   `launch.train.main` for 20 steps (batch 8 of 256 tokens) with
+   error-feedback gradient compression and raw checkpoints every 10
+   steps, and prints step ms, tokens/s, peak memory, the losses (which
+   must fall) and the wire bits; every leaf of one step's compression is
+   held to its contract (the dequantized gradient k * delta and the fused
+   residual bit for bit against their plain form, |k * delta - g'| <= eb);
+   `--resume --steps 25` must restore step 20 bit for bit and give finite
+   losses; then one lossy save of the trained params under
+   fixed_accuracy(1e-4) with the device encoders is timed (ms, bytes,
+   ratio, codecs; not restored: the host Huffman decoder would take
+   minutes). `[train-ckpt]` runs the launcher at the --smoke size with
+   `--compress-ckpt --ckpt-opt-ratio 8`: each restored params leaf within
+   1e-4 of its value range, the optimizer leaves under fixed_ratio, and a
+   resume. `[train-cpu-vs-card]` takes 5 reduced float32 steps from the
+   same weights on the CPU and the card (losses within
+   `TRAIN_CARD_LOSS_RTOL`) and compresses the same gradients on both
+   (bit for bit);
+13. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -93,7 +112,9 @@ turns (parent, change, change, parent) to compare them on one card.
 does the same for K1/K2 (`lorenzo_times`), and `--kv-times` for the KV
 page tier's evict and restore (`kv_times`). `--serve` runs only the
 serving phases (11), and `--decode-profile` traces full-width decode
-steps (`decode_profile`).
+steps (`decode_profile`). `--train` runs only the training phases (12),
+and `--train-profile` traces three full-width train steps
+(`train_profile`).
 """
 
 from __future__ import annotations
@@ -101,6 +122,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1158,6 +1180,415 @@ def serve_only(torch, np, dev) -> dict:
     return {"serve_k6_launches": k6}
 
 
+#: the training phases (`launch.train` flags): smollm-360m at full width and
+#: depth, 409.0 M float32 parameters, with error-feedback gradient compression
+TRAIN_ARCH = ["--arch", "smollm-360m"]
+TRAIN_RUN = ["--steps", "20", "--seq", "256", "--batch", "8", "--compress-grads",
+             "--ckpt-every", "10", "--log-every", "5"]
+TRAIN_RESUME_STEPS = 25
+#: the compressed step whose every leaf is held to its contract
+TRAIN_CHECKED_STEP = 5
+#: [train-cpu-vs-card]: losses of 5 steps at float32 within this relative
+#: tolerance (the card's float32 matmuls sum in other orders than the CPU's,
+#: and Adam's normalized step and the gradient codes amplify ulps, see
+#: tests/test_torch_train.py)
+TRAIN_CARD_LOSS_RTOL = 1e-4
+
+
+class TrainProbe:
+    """Wraps `launch.train`'s train step and `optim.compress.compress` while
+    in use: times every step (synchronized on both sides), keeps each
+    step's metrics and the last (params, opt_state) the step returned (the
+    step updates them in place, so after the run they hold its final
+    state), checks every leaf of one step's compression against its
+    contract on the card, and times the checkpoint manager's saves and
+    restores."""
+
+    def __init__(self, torch, check_step: int | None = None):
+        self.torch = torch
+        self.check_step = check_step
+        self.step_ms, self.metrics, self.save_ms, self.restore_ms = [], [], [], []
+        self.state = None
+        self.checked = None
+        self.restored = None
+        self._calls = 0
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager
+        from repro_torch.launch import train
+        from repro_torch.optim import compress
+
+        torch = self.torch
+        self._saved = [(train, "make_train_step", train.make_train_step),
+                       (compress, "compress", compress.compress),
+                       (manager.CheckpointManager, "save", manager.CheckpointManager.save),
+                       (manager.CheckpointManager, "restore_tree",
+                        manager.CheckpointManager.restore_tree)]
+        make, real_compress = train.make_train_step, compress.compress
+        save, restore_tree = manager.CheckpointManager.save, manager.CheckpointManager.restore_tree
+
+        def timed_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(params, opt_state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.metrics.append({k: float(v) for k, v in out[2].items()})
+                self.state = out[:2]
+                return out
+
+            return timed
+
+        def checked_compress(cfg, grads, state):
+            self._calls += 1
+            if self._calls != self.check_step:
+                return real_compress(cfg, grads, state)
+            g_in = [g.clone() for g in _leaves(grads)]
+            r_in = [r.clone() for r in _leaves(state["residual"])]
+            out = real_compress(cfg, grads, state)
+            self.checked = check_compress_contract(torch, cfg, g_in, r_in, _leaves(out[0]),
+                                                   _leaves(out[1]["residual"]))
+            return out
+
+        def timed_save(mgr, *a, **kw):
+            t0 = time.perf_counter()
+            out = save(mgr, *a, **kw)
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def kept_restore(mgr, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, tree = restore_tree(mgr, *a, **kw)
+            torch.cuda.synchronize()
+            self.restore_ms.append((time.perf_counter() - t0) * 1e3)
+            if self.restored is not None:
+                self.restored(step, tree)
+            return step, tree
+
+        train.make_train_step = timed_make
+        compress.compress = checked_compress
+        manager.CheckpointManager.save = timed_save
+        manager.CheckpointManager.restore_tree = kept_restore
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def check_compress_contract(torch, cfg, g_in, r_in, gq, resid) -> dict:
+    """Every leaf of one compression step against its plain form on the
+    card: with g' = g + r, vr = max g' - min g', eb = eb_rel * vr and
+    delta = 2 eb, k = round(g' / delta); the dequantized leaf must be
+    k * delta bit for bit, the residual the fused multiply-add g' - k*delta
+    (float64, rounded once) bit for bit, and |k*delta - g'| <= eb up to one
+    float32 rounding of each of the division and the product,
+    eb + 2^-24 (|g'| + |k*delta|). Returns the worst error over eb."""
+    worst, values = 0.0, 0
+    for g, r, q, res in zip(g_in, r_in, gq, resid):
+        gp = g.float() + r
+        vr = torch.clamp(gp.max() - gp.min(), min=1e-12)
+        eb = vr * cfg.eb_rel
+        delta = 2.0 * eb
+        k = torch.round(gp / delta)
+        check(torch.equal(q, k * delta), "train: a dequantized gradient is not k * delta")
+        fma = (gp.double() - k.double() * delta.double()).float()
+        check(torch.equal(res, fma), "train: a residual is not the fused g' - k * delta")
+        err = (q.double() - gp.double()).abs()
+        bound = eb.double() + 2.0**-24 * (gp.double().abs() + q.double().abs())
+        check(bool((err <= bound).all()), "train: a dequantized gradient is off by more than eb")
+        worst = max(worst, float((err / eb.double()).max()))
+        values += g.numel()
+    return {"leaves": len(gq), "values": values, "max_err_over_eb": worst}
+
+
+def _train_dir(name: str) -> Path:
+    """A fresh scratch directory under the checkout's ignored build/."""
+    import shutil
+
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def phase_train(torch, np, dev) -> dict:
+    """Training at the full width and depth of smollm-360m through
+    `launch.train.main`: 20 steps with gradient compression and raw
+    checkpoints every 10 steps (step ms, tokens/s, peak memory, losses,
+    wire bits; every leaf of one step's compression held to its contract),
+    a resume from step 20 to 25 (the restored tree bit for bit against the
+    trained one), then one lossy save of the trained params, timed."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core import Policy, device_encode
+    from repro_torch.kernels import lorenzo
+    from repro_torch.launch import train
+
+    ckpt = _train_dir("train_ckpt")
+    args = TRAIN_ARCH + TRAIN_RUN + ["--device", str(dev), "--ckpt-dir", str(ckpt)]
+    targs = train.parse_args(args)
+    torch.cuda.reset_peak_memory_stats()
+    with TrainProbe(torch, check_step=TRAIN_CHECKED_STEP) as probe:
+        out = train.main(args)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    params, opt_state = probe.state
+    losses = out["losses"]
+    n_params = sum(p.numel() for p in _leaves(params))
+    check(len(losses) == targs.steps and all(math.isfinite(v) for v in losses),
+          f"train: losses {losses}")
+    check(statistics.mean(losses[-5:]) < losses[0], f"train: the loss did not fall: {losses}")
+    check(probe.checked is not None, "train: the compression contract was not checked")
+    check(sorted(os.listdir(ckpt)) == ["LATEST", "step_000000010", "step_000000020"],
+          f"train: checkpoints {sorted(os.listdir(ckpt))}")
+    step_ms = probe.step_ms
+    tokens = targs.batch * targs.seq
+    first = dict(
+        arch=targs.arch, params=n_params, steps=targs.steps, seq=targs.seq, batch=targs.batch,
+        step_ms_median=statistics.median(step_ms[1:]), first_step_ms=step_ms[0],
+        step_ms=step_ms, tokens_per_s=tokens / (statistics.median(step_ms[1:]) / 1e3),
+        peak_gib=peak_gib, first_loss=losses[0], last_loss=losses[-1], losses=losses,
+        wire_bits_per_value=probe.metrics[-1]["wire_bits_per_value"],
+        grad_norm_last=probe.metrics[-1]["grad_norm"], compress_contract=probe.checked,
+        raw_save_ms=probe.save_ms, run_s=out["seconds"])
+    log("train", json.dumps(first))
+
+    # resume from step 20: the restored tree is the trained one, bit for bit
+    want = {"params": params, "opt": opt_state["adam"]}
+    seen = {}
+
+    def compare(step, tree):
+        seen["step"] = step
+        got, exp = _leaves(tree), _leaves(want)
+        check(len(got) == len(exp) and all(torch.equal(a, b) for a, b in zip(got, exp)),
+              f"train: step {step} did not restore bit for bit")
+
+    with TrainProbe(torch) as probe2:
+        probe2.restored = compare
+        again = train.main(args + ["--resume", "--steps", str(TRAIN_RESUME_STEPS)])
+    check(seen.get("step") == targs.steps, f"train: resumed from {seen.get('step')}")
+    check(len(again["losses"]) == TRAIN_RESUME_STEPS - targs.steps
+          and all(math.isfinite(v) for v in again["losses"]), f"train: resumed {again['losses']}")
+    log("train", json.dumps(dict(
+        resumed_from=seen["step"], restored_bit_for_bit=True, restore_ms=probe2.restore_ms[0],
+        losses=again["losses"], step_ms_median=statistics.median(probe2.step_ms[1:]))))
+    del again, probe2
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # one lossy save of the trained params
+    lossy = _train_dir("train_lossy")
+    mgr = CheckpointManager(CheckpointConfig(str(lossy), policy=Policy.fixed_accuracy(eb_rel=1e-4),
+                                             compress=True, device_encode=True), device=dev)
+    lorenzo.reset_launches()
+    declines = dict(device_encode.DECLINES)
+    path, save_ms = _timed(torch, lambda: mgr.save(targs.steps, {"params": params}))
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    codecs = {}
+    for row in man["fields"]:
+        codecs[row["codec"]] = codecs.get(row["codec"], 0) + 1
+    log("train", json.dumps(dict(
+        lossy_save_ms=save_ms, data_bytes=man["total_bytes"], raw_bytes=man["raw_bytes"],
+        ratio=man["raw_bytes"] / man["total_bytes"], codecs=codecs,
+        codec_of={row["name"]: row["codec"] for row in man["fields"]},
+        k1_launches=lorenzo.LAUNCHES["lorenzo2d_encode"],
+        k2_launches=lorenzo.LAUNCHES["lorenzo3d_encode"],
+        declines={k: v - declines.get(k, 0) for k, v in device_encode.DECLINES.items()
+                  if v != declines.get(k, 0)})))
+    shutil.rmtree(lossy, ignore_errors=True)
+    return first
+
+
+def phase_train_ckpt(torch, np, dev) -> dict:
+    """The launcher's lossy checkpoints at the --smoke size: params under
+    fixed_accuracy(1e-4), the optimizer state under fixed_ratio(8)
+    (`--ckpt-opt-ratio 8`), saved every 5 of 10 steps and resumed to 15.
+    Every restored params leaf of at least 64 values within 1e-4 * its value
+    range; every float optimizer leaf of at least 64 values resolved to
+    fixed_ratio."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.launch import train
+
+    ckpt = _train_dir("train_smoke_ckpt")
+    args = ["--smoke", "--device", str(dev), "--ckpt-dir", str(ckpt), "--ckpt-every", "5",
+            "--compress-ckpt",
+            "--ckpt-opt-ratio", "8", "--log-every", "5"]
+    with TrainProbe(torch) as probe:
+        out = train.main(args + ["--steps", "10"])
+    with open(ckpt / "step_000000010" / "manifest.json") as f:
+        rows = json.load(f)["fields"]
+    modes = {}
+    for row in rows:
+        size = math.prod(row["shape"])
+        if row["name"].startswith("opt/") and row["dtype"] == "float32" and size >= 64:
+            check(row["policy"]["mode"] == "fixed_ratio", f"train-ckpt: {row['name']} resolved "
+                  f"to {row['policy']['mode']}")
+        modes[row["policy"]["mode"]] = modes.get(row["policy"]["mode"], 0) + 1
+    _, flat = CheckpointManager(CheckpointConfig(str(ckpt)), device=dev).restore(10)
+    from repro_torch.core import pytree
+
+    worst = 0.0
+    for path, want in pytree.flatten_with_path({"params": out["params"]})[0]:
+        name = pytree.leaf_name(path)
+        if want.numel() < 64:
+            continue
+        vr = float(want.max() - want.min())
+        err = float((flat[name] - want).abs().max())
+        check(err <= 1e-4 * vr * (1 + 1e-5), f"train-ckpt: {name} off by {err} > 1e-4 * {vr}")
+        worst = max(worst, err / (1e-4 * vr))
+    negative_v = sum(int((t < 0).sum()) for n, t in flat.items() if n.startswith("opt/v/"))
+    with TrainProbe(torch) as probe2:
+        again = train.main(args + ["--steps", "15", "--resume"])
+    check(len(again["losses"]) == 5 and math.isfinite(again["losses"][0]),
+          f"train-ckpt: resumed {again['losses']}")
+    res = dict(steps=10, policies=modes, max_err_over_bound=worst, restore_ms=probe2.restore_ms,
+               save_ms=probe.save_ms, negative_v_values=negative_v, resumed_losses=again["losses"])
+    log("train-ckpt", json.dumps(res))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def _grad_tree(torch, np, seed):
+    """A gradient-shaped tree of numpy draws (scales 1e-6 to 10, a constant
+    leaf) and a residual tree, for the compressor on two devices."""
+    rng = np.random.default_rng(seed)
+    leaves = {"embed": ((512, 128), 1e-6), "blocks/w": ((4, 128, 256), 10.0),
+              "blocks/n": ((4, 128), 1e-2), "tiny": ((1000,), 0.1), "const": ((7, 9), 0.0)}
+    grads, resid = {}, {}
+    for name, (shape, scale) in leaves.items():
+        g = rng.standard_normal(shape) * scale if scale else np.full(shape, 0.375)
+        r = rng.standard_normal(shape) * 1e-3 * (scale or 1.0)
+        *outer, key = name.split("/")
+        for tree, arr in ((grads, g), (resid, r)):
+            for k in outer:
+                tree = tree.setdefault(k, {})
+            tree[key] = torch.from_numpy(arr.astype(np.float32))
+    return grads, {"residual": resid}
+
+
+def phase_train_cpu_vs_card(torch, np, dev) -> dict:
+    """The reduced smollm-360m at float32 from the same initial weights: 5
+    train steps with gradient compression on the CPU and on the card, the
+    losses within `TRAIN_CARD_LOSS_RTOL`; then one `compress` call on the
+    same gradients and residuals on both devices, the dequantized gradients
+    and residuals bit for bit, and the wire bits within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.optim import compress as gcomp
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    cfg = reduced_for_smoke(get_config("smollm-360m")).scaled(dtype="float32")
+    gc = GradCompressConfig(eb_rel=1e-3)
+    opt = AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    init = mnn.init_tree(build_model(cfg, device="cpu").desc(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    losses = {}
+    for where in ("cpu", dev):
+        model = build_model(cfg, device=where)
+        params = mnn.tree_map(lambda a: a.clone().to(where), init)
+        state = init_opt_state(params, gc)
+        step = make_train_step(model, opt, gc)
+        losses[str(where)] = []
+        for s in range(5):
+            batch = {k: torch.from_numpy(v).to(where) for k, v in synthetic_batch(dcfg, s).items()}
+            params, state, m = step(params, state, batch)
+            losses[str(where)].append(float(m["loss"]))
+    want, got = losses["cpu"], losses[str(dev)]
+    rel = max(abs(a / b - 1) for a, b in zip(got, want))
+    check(rel <= TRAIN_CARD_LOSS_RTOL, f"train-cpu-vs-card: losses {got} vs {want}")
+    grads, state = _grad_tree(torch, np, 11)
+    on = {}
+    for where in ("cpu", dev):
+        g = mnn.tree_map(lambda a: a.to(where), grads)
+        st = {"residual": mnn.tree_map(lambda a: a.to(where), state["residual"])}
+        on[str(where)] = gcomp.compress(gc, g, st)
+    (cq, cs, cm), (dq, ds, dm) = on["cpu"], on[str(dev)]
+    for a, b in zip(_leaves(cq) + _leaves(cs), _leaves(dq) + _leaves(ds)):
+        check(torch.equal(a, b.cpu()), "train-cpu-vs-card: compressed gradients differ")
+    wb = (float(cm["wire_bits_per_value"]), float(dm["wire_bits_per_value"]))
+    check(abs(wb[1] / wb[0] - 1) <= 1e-6, f"train-cpu-vs-card: wire bits {wb}")
+    res = dict(losses_cpu=want, losses_card=got, max_rel_loss_diff=rel,
+               compress_bit_for_bit=True, wire_bits=wb)
+    log("train-cpu-vs-card", json.dumps(res))
+    return res
+
+
+def train_only(torch, np, dev) -> dict:
+    """The training phases alone."""
+    return {"train": phase_train(torch, np, dev), "train_ckpt": phase_train_ckpt(torch, np, dev),
+            "train_cpu_vs_card": phase_train_cpu_vs_card(torch, np, dev)}
+
+
+def train_profile(torch, np, dev) -> dict:
+    """Where a full-width train step's time goes (`[train]`'s shapes:
+    smollm-360m, batch 8 of 256 tokens, gradient compression): host ms a
+    step over 3 steps, then over 3 steps traced by `torch.profiler` the
+    device's busy ms a step (its kernels' summed durations), its idle share
+    of the traced steps, the kernels launched a step and the 12 ops with
+    the most device time (ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models import nn as mnn
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    targs = train.parse_args(TRAIN_ARCH + TRAIN_RUN)
+    cfg = get_config(targs.arch)
+    model = build_model(cfg, device=dev)
+    params = mnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    gc = GradCompressConfig()
+    state = init_opt_state(params, gc)
+    step = make_train_step(model, AdamWConfig(lr=targs.lr, total_steps=100, warmup_steps=20), gc)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=targs.seq, global_batch=targs.batch)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(dcfg, s).items()}
+               for s in range(8)]
+    for b in batches[:2]:
+        params, state, m = step(params, state, b)
+    steps = 3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for b in batches[2:2 + steps]:
+        params, state, m = step(params, state, b)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[2 + steps:2 + 2 * steps]:
+            params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    avgs = sorted(prof.key_averages(), key=dev_us, reverse=True)[:12]
+    return dict(
+        arch=targs.arch, batch=targs.batch, seq=targs.seq,
+        untraced_ms_per_step=untraced_ms, traced_ms_per_step=wall_ms,
+        device_busy_ms_per_step=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+        kernels_per_step=len(kernels) / steps,
+        top_ops_device_ms_per_step={e.key: dev_us(e) / 1e3 / steps for e in avgs},
+        top_ops_calls_per_step={e.key: e.count / steps for e in avgs},
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
 #: the pytree phase's leaves in the reference's order (`jax.tree_util`)
 PYTREE_NAMES = [
     "atm/ATM_00", "atm/ATM_01", "atm/ATM_02", "atm/ATM_03", "bf16", "const", "f64",
@@ -1845,6 +2276,11 @@ def main() -> int:
     parser.add_argument("--decode-profile", action="store_true",
                         help="only trace full-width decode steps (decode_profile) and print "
                         "where their time goes as JSON")
+    parser.add_argument("--train", action="store_true",
+                        help="only run the training phases (train_only)")
+    parser.add_argument("--train-profile", action="store_true",
+                        help="only trace full-width train steps (train_profile) and print "
+                        "where their time goes as JSON")
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="directory to import repro_torch from (another checkout's src/, "
                         "to time two commits in one run)")
@@ -1876,7 +2312,8 @@ def main() -> int:
     for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times),
                           (args.zfp_peak, zfp_peak), (args.select_profile, select_profile),
                           (args.kv_times, kv_times), (args.serve, serve_only),
-                          (args.decode_profile, decode_profile)):
+                          (args.decode_profile, decode_profile), (args.train, train_only),
+                          (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)
@@ -1913,6 +2350,9 @@ def main() -> int:
     launches["bot3d_fused"] += k6_serve
     phase_serve_raw(torch, np, dev, served)
     del served
+    phase_train(torch, np, dev)
+    phase_train_ckpt(torch, np, dev)
+    phase_train_cpu_vs_card(torch, np, dev)
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():

@@ -120,6 +120,17 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
+def leaves(tree) -> list:
+    """The leaves of `tree` in the reference's order."""
+    return [leaf for _, leaf in flatten_with_path(tree)[0]]
+
+
+def tree_map(fn, tree) -> Any:
+    """`tree` with `fn` applied to every leaf, its structure kept."""
+    found, treedef = flatten_with_path(tree)
+    return unflatten(treedef, [fn(leaf) for _, leaf in found])
+
+
 def leaf_name(path) -> str:
     """The reference's leaf name: path entries joined by '/', each its dict
     key, its position, or ``.field``."""

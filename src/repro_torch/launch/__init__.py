@@ -1,3 +1,3 @@
-"""repro_torch.launch — command-line drivers (`serve`), in PyTorch. The
-reference's train, dry-run and multi-host launchers are not ported yet
-(ROADMAP queue A items 11-14)."""
+"""repro_torch.launch — command-line drivers (`serve`, `train`), in
+PyTorch. The reference's dry-run and multi-host launchers are not ported
+yet (ROADMAP queue A item 14)."""

@@ -3,12 +3,15 @@ P-descriptors, in torch.
 
 Port of `repro.models.model` for configs without MoE and MLA (dense and
 the vision-stub VLM decoder). Layers are stacked on a leading axis as in
-the reference and run as a Python loop over that axis.
+the reference and run as a Python loop over that axis; under autograd
+with `cfg.remat` (the default) and no cache, each layer runs under
+`torch.utils.checkpoint`, as the reference's `jax.checkpoint` of its
+scanned layer, so a training step keeps one activation a layer.
 
 Public API (built by `build_model(cfg, device=...)`):
   model.desc()                          -> param descriptor tree
   model.forward(params, batch, cache)   -> (logits, new_cache)
-  model.loss(params, batch)             -> (loss, metrics), forward only
+  model.loss(params, batch)             -> (loss, metrics)
   model.cache_desc(batch, max_len)      -> cache TensorSpec tree
   model.init_cache(batch, max_len)      -> zero-initialized cache
   model.decode_step(params, tok, cache) -> (logits, new_cache)
@@ -26,6 +29,7 @@ ROADMAP queue A item 12; `build_model` raises for them.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from . import blocks, nn
@@ -124,6 +128,9 @@ class TransformerLM(BaseLM):
         x = x + blocks.apply_mlp(p["mlp"], x, cfg)
         return x, new_c
 
+    def _remat_block(self, p, x, positions, window):
+        return self._block(p, x, positions, None, window=window)[0]
+
     def forward(self, params, batch, cache=None):
         cfg = self.cfg
         x = self._embed(params, batch)
@@ -134,14 +141,20 @@ class TransformerLM(BaseLM):
         # table, threaded into every layer's cache view
         paged = cache is not None and "page_table" in cache
         positions = pos0[:, None] + steps[None, :] if paged else pos0 + steps[None, :]
-        for i in range(cfg.n_layers):
+        # training: each layer's activations are recomputed in the backward
+        # (the reference's jax.checkpoint of the scanned layer)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        for i, p in enumerate(nn.unstack(params["blocks"], cfg.n_layers)):
+            if remat:
+                x = checkpoint(self._remat_block, p, x, positions, cfg.attn_window,
+                               use_reentrant=False)
+                continue
             cl = None
             if cache is not None:
                 cl = dict(nn.layer(cache["blocks"], i), len=pos0)
                 if paged:
                     cl["ptab"] = cache["page_table"]
-            x, _ = self._block(nn.layer(params["blocks"], i), x, positions, cl,
-                               window=cfg.attn_window)
+            x, _ = self._block(p, x, positions, cl, window=cfg.attn_window)
         new_cache = None
         if cache is not None:
             # the layers wrote their rows into cache["blocks"] in place

@@ -4,8 +4,9 @@ torch.
 Port of `repro.models.nn`. Parameters are declared as nested dicts of `P`
 descriptors (shape, logical axes, init); `init_tree` draws them from an
 explicit `torch.Generator` on an explicit device, and
-`params_from_reference` carries a tree of the reference's weights across
-(as numpy arrays), so both packages can compute with the same weights.
+`params_from_reference` carries a tree of the reference's weights (or its
+optimizer state) across as numpy arrays, so both packages can compute with
+the same weights.
 The layers are plain functions on tensors.
 
 Numerics follow the reference: activations in the compute dtype of `x`
@@ -96,9 +97,11 @@ def _reference_leaf(a, dev: torch.device) -> torch.Tensor:
 
 
 def params_from_reference(tree: Any, *, device=None) -> Any:
-    """The reference's parameter tree, as nested dicts of numpy arrays
-    (``jax.tree_util.tree_map(np.asarray, params)``), as tensors on
-    `device` (default the GPU): the same keys, shapes and dtypes."""
+    """The reference's parameter tree, or its optimizer state (``{"adam":
+    {"m", "v", "step"}, "gc": {"residual"}}``), as nested dicts of numpy
+    arrays (``jax.tree_util.tree_map(np.asarray, tree)``), as tensors on
+    `device` (default the GPU): the same keys, shapes and dtypes (Adam's
+    step a 0-d int32 tensor)."""
     dev = _device.resolve(device)
     return tree_map(lambda a: _reference_leaf(a, dev), tree)
 
@@ -110,6 +113,14 @@ def stack_layers(descs: list[Any]) -> Any:
     return tree_map(
         lambda p: P((n,) + p.shape, ("layers",) + p.axes, p.init, p.scale, p.dtype), descs[0]
     )
+
+
+def unstack(tree: Any, n: int) -> list[Any]:
+    """The `n` layers of a tree stacked on a leading axis, as views
+    (`torch.unbind`, whose backward stacks the layers' gradients in one
+    copy where indexing would add a full-size gradient per layer)."""
+    leaves = tree_map(lambda a: torch.unbind(a, 0), tree)
+    return [tree_map(lambda t: t[i], leaves) for i in range(n)]
 
 
 def layer(tree: Any, i: int) -> Any:

@@ -1,16 +1,66 @@
-"""Serving step builders: prefill and decode, in torch.
+"""train_step / serve_step builders, in torch.
 
-Port of the serving half of `repro.runtime.steps`. The functions take
-explicit param and cache trees and run eagerly (no jit). The train step
-and `init_opt_state` wait for the training slice (ROADMAP queue A
-item 11).
+Port of `repro.runtime.steps`. The functions take explicit param,
+optimizer and cache trees and run eagerly (no jit). Where the reference's
+launcher donates the params and optimizer state to its jitted step, the
+train step here updates them in place (see `make_train_step`).
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
+from ..core import pytree
 from ..models.model import BaseLM
+from ..optim import adamw, compress
+
+
+def make_train_step(model: BaseLM, opt_cfg: adamw.AdamWConfig,
+                    grad_comp: compress.GradCompressConfig | None = None):
+    """Returns step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    The loss and its gradients with respect to every param leaf come from
+    `torch.autograd.grad` (the forward recomputes each layer in the
+    backward, `cfg.remat`); then, with `grad_comp`, the gradients are
+    compressed with error feedback (`opt_state['gc']` holds the
+    residuals), and `adamw.update` applies them. The params, Adam's m and
+    v and the residuals are updated IN PLACE: the returned trees hold the
+    given tensors (a caller that needs the old values copies them first).
+    The metrics are 0-d tensors on the device: 'loss', 'tokens',
+    'grad_norm', 'lr', and 'wire_bits_per_value' when compressing.
+    """
+
+    def step(params, opt_state, batch):
+        leaves, treedef = pytree.flatten_with_path(params)
+        # fresh leaves that share the params' storage, so the caller's
+        # tensors keep requires_grad off and take the update in place
+        tracked = [p.detach().requires_grad_(True) for _, p in leaves]
+        loss, aux = model.loss(pytree.unflatten(treedef, tracked), batch)
+        grads = pytree.unflatten(treedef, list(torch.autograd.grad(loss, tracked)))
+        metrics = {k: v.detach() for k, v in aux.items()}
+        new_state = {}
+        with torch.no_grad():
+            if grad_comp is not None:
+                grads, gc_state, gm = compress.compress(grad_comp, grads, opt_state["gc"])
+                for r, new in zip(pytree.leaves(opt_state["gc"]), pytree.leaves(gc_state)):
+                    r.copy_(new)
+                new_state["gc"] = opt_state["gc"]
+                metrics.update(gm)
+            params, new_state["adam"], om = adamw.update(
+                opt_cfg, grads, opt_state["adam"], params)
+        metrics.update(om)
+        return params, new_state, metrics
+
+    return step
+
+
+def init_opt_state(params: Any, grad_comp: compress.GradCompressConfig | None = None) -> dict:
+    out = {"adam": adamw.init(params)}
+    if grad_comp is not None:
+        out["gc"] = compress.init(params)
+    return out
 
 
 def make_prefill_step(model: BaseLM):

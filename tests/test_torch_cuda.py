@@ -778,3 +778,114 @@ def test_lossy_serving_on_card_launches_k6(cuda_device):
     assert b.stats["evictions"] > 0 and b.stats["restores"] > 0
     lossy = sum(r.evictions for r in reqs)
     assert bot4.LAUNCHES["bot3d_fused"] - before >= lossy
+
+
+# -- training: the train step, gradient compression and AdamW on the card ---
+
+
+def _train_run(device, steps, gc):
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    cfg, model, params = _serving_model(device)
+    state = init_opt_state(params, gc)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5), gc)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    losses = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in synthetic_batch(dcfg, s).items()}
+        params, state, m = step(params, state, batch)
+        assert all(v.device.type == device.type for v in m.values())
+        losses.append(float(m["loss"]))
+    return losses, params
+
+
+@pytest.mark.parametrize("compress_grads", [False, True])
+def test_train_steps_on_card_track_cpu(cuda_device, compress_grads):
+    """Five reduced float32 train steps from the same weights on the card
+    and on the CPU: losses within a relative 1e-4 (float32 sums in other
+    orders, amplified by Adam's normalized step and, with compression, by
+    codes that flip where the two gradients straddle a rounding midpoint;
+    tests/test_torch_train.py), params within 2 * sum(lr) + 1e-5 max|p|."""
+    from repro_torch.optim import GradCompressConfig
+
+    gc = GradCompressConfig(eb_rel=1e-3) if compress_grads else None
+    got, gp = _train_run(cuda_device, 5, gc)
+    want, wp = _train_run(torch.device("cpu"), 5, gc)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for a, b in zip(_tree_leaves(gp), _tree_leaves(wp)):
+        assert a.device.type == "cuda"
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()) + 2 * 5 * 1e-3, err
+
+
+def _tree_leaves(tree):
+    from repro_torch.core import pytree
+
+    return [leaf for _, leaf in pytree.flatten_with_path(tree)[0]]
+
+
+def _grads_and_residuals(seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": ((64, 33), 1e-6), "b": ((3, 17, 40), 10.0), "c": ((1000,), 0.1),
+              "d": ((7, 13), 1.0), "const": ((4, 6), 0.0)}
+    g = {k: torch.from_numpy((rng.standard_normal(s) * sc if sc else np.full(s, 0.375))
+                             .astype(np.float32)) for k, (s, sc) in shapes.items()}
+    r = {k: torch.from_numpy((rng.standard_normal(s) * 1e-3 * (sc or 1.0)).astype(np.float32))
+         for k, (s, sc) in shapes.items()}
+    return g, r
+
+
+@pytest.mark.parametrize("eb_rel", [1e-3, 1e-4])
+def test_grad_compress_on_card_equals_cpu(cuda_device, eb_rel):
+    """The same gradients and residuals through `optim.compress` on both
+    devices: dequantized gradients and residuals bit for bit (a true
+    division, round half to even, the residual as one float64 FMA, exact
+    integer histograms), wire bits within 1e-6."""
+    from repro_torch.optim import compress as gcomp
+
+    cfg = gcomp.GradCompressConfig(eb_rel=eb_rel)
+    g, r = _grads_and_residuals(3)
+    cq, cs, cm = gcomp.compress(cfg, g, {"residual": r})
+    dq, ds, dm = gcomp.compress(cfg, {k: v.to(cuda_device) for k, v in g.items()},
+                                {"residual": {k: v.to(cuda_device) for k, v in r.items()}})
+    for k in g:
+        assert dq[k].device.type == "cuda"
+        assert torch.equal(dq[k].cpu(), cq[k]), k
+        assert torch.equal(ds["residual"][k].cpu(), cs["residual"][k]), k
+    np.testing.assert_allclose(float(dm["wire_bits_per_value"]), float(cm["wire_bits_per_value"]),
+                               rtol=1e-6)
+
+
+def test_adamw_update_on_card_tracks_cpu(cuda_device):
+    """Three `adamw.update`s on the same tree on both devices: m and v
+    within 1e-6 of each leaf's max, params within 1e-6 of max|p|, grad norm
+    and lr within 1e-6 (the card's cos, pow and sum orders are not the
+    CPU's)."""
+    from repro_torch.optim import adamw
+
+    cfg = adamw.AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    rng = np.random.default_rng(5)
+    p0 = {"w": torch.from_numpy(rng.standard_normal((64, 33)).astype(np.float32)),
+          "n": torch.ones(40)}
+    trees = {d: {k: v.clone().to(d) for k, v in p0.items()} for d in ("cpu", cuda_device)}
+    states = {d: adamw.init(trees[d]) for d in trees}
+    for s in range(3):
+        g = {k: torch.from_numpy((rng.standard_normal(v.shape) * (2.0 if s else 1e-3))
+                                 .astype(np.float32)) for k, v in p0.items()}
+        out = {}
+        for d in trees:
+            trees[d], states[d], out[d] = adamw.update(
+                cfg, {k: v.to(d) for k, v in g.items()}, states[d], trees[d])
+        for key in ("grad_norm", "lr"):
+            np.testing.assert_allclose(float(out[cuda_device][key]), float(out["cpu"][key]),
+                                       rtol=1e-6)
+        for k in p0:
+            for got, want in ((trees[cuda_device][k], trees["cpu"][k]),
+                              (states[cuda_device]["m"][k], states["cpu"]["m"][k]),
+                              (states[cuda_device]["v"][k], states["cpu"]["v"][k])):
+                np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                           atol=1e-6 * float(want.abs().max()))
+    assert int(states[cuda_device]["step"]) == 3
+    assert states[cuda_device]["step"].dtype == torch.int32
