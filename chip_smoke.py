@@ -75,7 +75,18 @@ phase that goes wrong:
    raw, that every restored lossy stack is within its bound of a copy
    taken at evict time, and that K6 ran the evictions; `[serve-raw]`
    runs the same requests under `Policy.raw()` on the default arena and
-   on the small one, whose token streams must be equal;
+   on the small one, whose token streams must be equal; then the MoE and
+   MLA decoders at their full published width, depth cut to fit the card:
+   `[serve-moe]` serves llama4-scout-17b-a16e (4 of 48 layers) with a
+   static prefill + decode and `[serve]`'s continuous traffic under the
+   same checks (its lossy page stacks, (4, 16, 1024), evict through K6);
+   `[serve-mla]` serves deepseek-v2-236b (the dense layer and 2 MoE layers
+   of 60) with a static prefill + decode and the legacy contiguous
+   batcher, 4 requests on 2 slots, each stream equal to the prompt decoded
+   alone; both check `apply_moe` bit for bit across two runs;
+   `[moe-mla-cpu-vs-card]` holds the reduced models on the card to the CPU
+   (float32 logits without a cache, then a cached prefill and 8 decode
+   steps);
 12. training at the full width and depth of smollm-360m (409.0 M float32
    parameters drawn on the card from a generator seeded 0): `[train]` runs
    `launch.train.main` for 20 steps (batch 8 of 256 tokens) with
@@ -111,8 +122,9 @@ turns (parent, change, change, parent) to compare them on one card.
 
 does the same for K1/K2 (`lorenzo_times`), and `--kv-times` for the KV
 page tier's evict and restore (`kv_times`). `--serve` runs only the
-serving phases (11), and `--decode-profile` traces full-width decode
-steps (`decode_profile`). `--train` runs only the training phases (12),
+phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
+and `--decode-profile [ARCH]` traces full-width decode steps of
+phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 and `--train-profile` traces three full-width train steps
 (`train_profile`).
 """
@@ -120,6 +132,7 @@ and `--train-profile` traces three full-width train steps
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -868,20 +881,17 @@ def phase_kv(torch, np, dev, times: dict | None = None):
     return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
 
 
-def phase_serve_cpu_vs_card(torch, np, dev):
-    """The served model at a small size against the same weights on the
-    CPU: the reduced phi4-mini-3.8b at float32 (TF32 off), a 64-token
-    prefill and 8 cached decode steps fed the CPU's greedy tokens. Logits
-    within rtol 1e-4 and atol 1e-5 * max|logit| after the prefill, and
-    atol 1e-3 * max|logit| after decode steps (the caches hold bfloat16,
-    where a float32 value an ulp apart can round to the other neighbour);
-    the same greedy token wherever the CPU's top-2 margin exceeds twice
-    that."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model, reduced_for_smoke
+def cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(1e-4, 1e-5)) -> float:
+    """`cfg` (a float32 config) on the CPU and on the card with the same
+    weights: a 64-token prefill and 8 cached decode steps fed the CPU's
+    greedy tokens. Logits within rtol, atol * max|logit| = `prefill_tol`
+    after the prefill, and atol 1e-3 * max|logit| after decode steps (the
+    caches hold bfloat16, where a float32 value an ulp apart can round to
+    the other neighbour); the same greedy token wherever the CPU's top-2
+    margin exceeds twice that. Returns the worst max err / max|logit|."""
+    from repro_torch.models import build_model
     from repro_torch.models import nn as mnn
 
-    cfg = reduced_for_smoke(get_config("phi4-mini-3.8b")).scaled(dtype="float32")
     cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
     params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
     toks = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab, (2, 64)),
@@ -903,12 +913,27 @@ def phase_serve_cpu_vs_card(torch, np, dev):
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         scale = float(w.abs().max())
-        tol = (1e-4 * w.abs() + 1e-5 * scale) if i == 0 else 1e-3 * scale
-        check(bool(((g - w).abs() <= tol).all()), f"serve: card logits differ from the CPU's at step {i}")
+        tol = (prefill_tol[0] * w.abs() + prefill_tol[1] * scale) if i == 0 else 1e-3 * scale
+        check(bool(((g - w).abs() <= tol).all()),
+              f"{cfg.name}: card logits differ from the CPU's at step {i} "
+              f"(max err / max|logit| {float((g - w).abs().max()) / scale:.3g})")
         top = torch.topk(w, 2, dim=-1).values
         clear = (top[:, 0] - top[:, 1]) > 2 * 1e-3 * scale
-        check(torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]), f"serve: card token differs at {i}")
+        check(torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]),
+              f"{cfg.name}: card token differs at {i}")
         worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def phase_serve_cpu_vs_card(torch, np, dev):
+    """The served model at a small size against the same weights on the
+    CPU: the reduced phi4-mini-3.8b at float32 (TF32 off), through
+    `cpu_vs_card_decode`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
+
+    cfg = reduced_for_smoke(get_config("phi4-mini-3.8b")).scaled(dtype="float32")
+    worst = cpu_vs_card_decode(torch, np, dev, cfg)
     log("serve-cpu-vs-card", f"reduced {cfg.name} at float32: prefill and 8 decode steps on the "
         f"card within tolerance of the CPU (max err / max|logit| {worst:.3g})")
 
@@ -1034,6 +1059,46 @@ def _median(xs):
     return statistics.median(xs) if xs else None
 
 
+def check_continuous(tag: str, args, out: dict, probe, k6: int, peak_gib: float) -> dict:
+    """The checks of a lossy `run_continuous` under `ServeProbe`: every
+    request completes with `args.gen` tokens, the arena evicts and restores,
+    long requests resolve to fixed_ratio and short ones to raw, every
+    restored stack is within its bound of its copy at evict, and K6 ran
+    once per lossy stack. Returns the run's numbers."""
+    reqs = out["requests"]
+    check(out["completed"] == len(reqs) == args.requests, f"{tag}: {out['completed']} completed")
+    check(all(len(r.out) == args.gen for r in reqs), f"{tag}: a request got another count of tokens")
+    check(out["evictions"] > 0 and out["restores"] > 0,
+          f"{tag}: evictions {out['evictions']}, restores {out['restores']}")
+    for r in reqs:
+        want = "fixed_ratio" if len(r.prompt) + r.max_new >= args.long_threshold else "raw"
+        check(r.policy.mode == want, f"{tag}: request {r.rid} resolved to {r.policy.mode}")
+    restored = probe.check_restored(tag)
+    lossy = [cp for cp in probe.stored if cp.codec == "bot"]
+    check(len(lossy) >= 1 and restored["bot"] >= 1, f"{tag}: no lossy stack evicted and restored")
+    check(k6 == len(lossy), f"{tag}: K6 launched {k6} times for {len(lossy)} lossy stacks")
+    per_stack = {mode: [ms / n for ms, n, m in zip(probe.ms["evict"], probe.evict_stacks,
+                                                   probe.evict_mode) if n and m == mode]
+                 for mode in ("fixed_ratio", "raw")}
+    by_len = {n: [ms for ms, m in zip(probe.ms["prefill"], probe.prefill_len) if m == n]
+              for n in sorted(set(probe.prefill_len))}
+    return dict(
+        requests=len(reqs), steps=out["steps"], arena_pages=args.arena_pages,
+        decode_tok_s=out["decode_tok_s"], decode_ms_per_step=_median(probe.ms["decode"]),
+        prefill_ms={n: _median(v) for n, v in by_len.items()},
+        evict_ms_per_request=_median(probe.ms["evict"]),
+        evict_ms_per_stack={m: _median(v) for m, v in per_stack.items()},
+        evict_ms=probe.ms["evict"], evict_stacks=probe.evict_stacks, evict_mode=probe.evict_mode,
+        restore_ms_each=probe.ms["resume"], decompress_ms_per_stack=_median(probe.ms["decompress"]),
+        restore_ms=_median(probe.ms["resume"]), evictions=out["evictions"],
+        restores=out["restores"], page_reuses=out["page_reuses"],
+        decision_hits=out["decision_hits"], peak_resident_kv_bytes=out["peak_resident_kv_bytes"],
+        lossy_stacks=len(lossy), lossy_store_bytes=sum(cp.nbytes for cp in lossy),
+        lossy_raw_bytes=sum(probe.copies[id(cp)].numel() * 2 for cp in lossy),  # bfloat16
+        raw_stacks=len(probe.stored) - len(lossy), restored=restored,
+        k6_launches=k6, peak_gib=peak_gib)
+
+
 def phase_serve(torch, np, dev):
     """Continuous serving at full width with compress-on-evict (K6).
     Returns K6's launches and (args, cfg, model, params) for the raw runs."""
@@ -1054,38 +1119,7 @@ def phase_serve(torch, np, dev):
         out = serve.run_continuous(args, cfg, model, params)
     k6 = bot4.LAUNCHES["bot3d_fused"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    reqs = out["requests"]
-    check(out["completed"] == len(reqs) == args.requests, f"serve: {out['completed']} completed")
-    check(all(len(r.out) == args.gen for r in reqs), "serve: a request got another count of tokens")
-    check(out["evictions"] > 0 and out["restores"] > 0,
-          f"serve: evictions {out['evictions']}, restores {out['restores']}")
-    for r in reqs:
-        want = "fixed_ratio" if len(r.prompt) + r.max_new >= args.long_threshold else "raw"
-        check(r.policy.mode == want, f"serve: request {r.rid} resolved to {r.policy.mode}")
-    restored = probe.check_restored("serve")
-    lossy = [cp for cp in probe.stored if cp.codec == "bot"]
-    check(len(lossy) >= 1 and restored["bot"] >= 1, "serve: no lossy stack evicted and restored")
-    check(k6 == len(lossy), f"serve: K6 launched {k6} times for {len(lossy)} lossy stacks")
-    per_stack = {mode: [ms / n for ms, n, m in zip(probe.ms["evict"], probe.evict_stacks,
-                                                   probe.evict_mode) if n and m == mode]
-                 for mode in ("fixed_ratio", "raw")}
-    by_len = {n: [ms for ms, m in zip(probe.ms["prefill"], probe.prefill_len) if m == n]
-              for n in sorted(set(probe.prefill_len))}
-    log("serve", json.dumps(dict(
-        requests=len(reqs), steps=out["steps"], arena_pages=args.arena_pages,
-        decode_tok_s=out["decode_tok_s"], decode_ms_per_step=_median(probe.ms["decode"]),
-        prefill_ms={n: _median(v) for n, v in by_len.items()},
-        evict_ms_per_request=_median(probe.ms["evict"]),
-        evict_ms_per_stack={m: _median(v) for m, v in per_stack.items()},
-        evict_ms=probe.ms["evict"], evict_stacks=probe.evict_stacks, evict_mode=probe.evict_mode,
-        restore_ms_each=probe.ms["resume"], decompress_ms_per_stack=_median(probe.ms["decompress"]),
-        restore_ms=_median(probe.ms["resume"]), evictions=out["evictions"],
-        restores=out["restores"], page_reuses=out["page_reuses"],
-        decision_hits=out["decision_hits"], peak_resident_kv_bytes=out["peak_resident_kv_bytes"],
-        lossy_stacks=len(lossy), lossy_store_bytes=sum(cp.nbytes for cp in lossy),
-        lossy_raw_bytes=sum(probe.copies[id(cp)].numel() * 2 for cp in lossy),  # bfloat16
-        raw_stacks=len(probe.stored) - len(lossy), restored=restored,
-        k6_launches=k6, peak_gib=peak_gib)))
+    log("serve", json.dumps(check_continuous("serve", args, out, probe, k6, peak_gib)))
     return k6, (args, cfg, model, params)
 
 
@@ -1122,20 +1156,21 @@ def phase_serve_raw(torch, np, dev, served):
         f"{runs['tight']['evictions']} raw evictions")
 
 
-def decode_profile(torch, np, dev) -> dict:
-    """Where a full-width decode step's time goes (`[serve-static]`'s
-    shapes: batch 4 after a 64-token prefill): host ms a step over 5 steps,
+def decode_profile(torch, np, dev, arch: str = SERVE_ARCH[1]) -> dict:
+    """Where a full-width decode step of `arch` goes (`[serve-static]`'s
+    shapes: batch 4 after a 64-token prefill; the MoE and MLA models at
+    the depth of their serving phases): host ms a step over 5 steps,
     then over 5 steps traced by `torch.profiler` the device's busy ms a
     step (its kernels' summed durations), its idle share of the traced
     steps, the kernels launched a step and the 12 ops with the most device
     time (ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch import serve
+    from repro_torch.configs import get_config
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
-    args = serve.parse_args(SERVE_ARCH + SERVE_STATIC)
-    cfg, model, params = serve.build(args)
+    layers = {MOE_ARCH: MOE_LAYERS, MLA_ARCH: MLA_LAYERS}.get(arch, get_config(arch).n_layers)
+    cfg, model, params = full_width_model(torch, dev, arch, layers)
     toks = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab, (4, 64)),
                            dtype=torch.int32, device=dev)
     cache = model.init_cache(4, 64 + 16)
@@ -1165,7 +1200,7 @@ def decode_profile(torch, np, dev) -> dict:
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
     avgs = sorted(prof.key_averages(), key=dev_us, reverse=True)[:12]
     return dict(
-        untraced_ms_per_step=untraced_ms, traced_ms_per_step=wall_ms,
+        arch=arch, n_layers=layers, untraced_ms_per_step=untraced_ms, traced_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1.0 - busy_ms / wall_ms, kernels_per_step=len(kernels) / steps,
         top_ops_device_ms_per_step={e.key: dev_us(e) / 1e3 / steps for e in avgs},
@@ -1178,6 +1213,240 @@ def serve_only(torch, np, dev) -> dict:
     k6, served = phase_serve(torch, np, dev)
     phase_serve_raw(torch, np, dev, served)
     return {"serve_k6_launches": k6}
+
+
+#: the MoE and MLA serving phases: each model at its full published width,
+#: its depth cut to what one card's 80 GB holds in float32 weights
+#: (llama4-scout: ~2.2 B parameters a layer and 2 x 1.03 B for embed and
+#: head, 10.9 B in 4 of 48 layers; deepseek-v2: the dense layer and 2 MoE
+#: layers of ~3.97 B each with 2 x 0.52 B for embed and head, 9.3 B in 3 of
+#: 60 layers)
+MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 4
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 3
+#: the static prefill + decode of both (`[serve-static]`'s shapes)
+STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 4, 64, 32
+#: `[serve-mla]`'s legacy batcher: 4 requests on 2 slots
+MLA_REQUESTS, MLA_SLOTS, MLA_PROMPT, MLA_GEN = 4, 2, 64, 16
+
+
+def full_width_model(torch, dev, name: str, n_layers: int):
+    """(cfg, model, params): `name` at full width cut to `n_layers`, its
+    float32 weights drawn on the card from a generator seeded 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import nn as mnn
+
+    cfg = get_config(name).scaled(n_layers=n_layers)
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = mnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(a.numel() for a in _leaves(params))
+    log(name, f"{n:,} float32 parameters ({n * 4 / 1e9:.1f} GB) in {n_layers} layers drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    return cfg, model, params
+
+
+def static_serve(torch, np, dev, cfg, model, params) -> dict:
+    """A batch of `STATIC_BATCH` prompts of `STATIC_PROMPT` tokens through
+    `make_prefill_step`, then `STATIC_GEN - 1` greedy steps through
+    `make_decode_step` on the contiguous cache, each call timed between
+    synchronizes (after one untimed prefill): prefill ms, the median decode
+    ms a step, tok/s, peak."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(1, cfg.vocab, (STATIC_BATCH, STATIC_PROMPT)),
+        dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(STATIC_BATCH, STATIC_PROMPT + STATIC_GEN)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    prefill(params, {"tokens": toks}, model.init_cache(STATIC_BATCH, STATIC_PROMPT))  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks}, cache)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    out, step_ms = [nxt], []
+    for _ in range(STATIC_GEN - 1):
+        t = time.perf_counter()
+        nxt, cache = decode(params, nxt, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        out.append(nxt)
+    out = torch.cat(out, dim=1)
+    check(tuple(out.shape) == (STATIC_BATCH, STATIC_GEN) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab, f"{cfg.name}: static tokens {tuple(out.shape)}")
+    check(int(cache["pos"]) == STATIC_PROMPT + STATIC_GEN - 1, f"{cfg.name}: cache clock")
+    return dict(batch=STATIC_BATCH, prompt=STATIC_PROMPT, gen=STATIC_GEN, prefill_ms=prefill_ms,
+                decode_ms_per_step=statistics.median(step_ms),
+                decode_ms_range=[min(step_ms), max(step_ms)],
+                decode_tok_s=STATIC_BATCH * len(step_ms) / (sum(step_ms) / 1e3),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def moe_twice_equal(torch, cfg, params, x) -> bool:
+    """`apply_moe` of the first MoE layer, run twice on `x`: bit for bit?"""
+    from repro_torch.models import blocks
+    from repro_torch.models import nn as mnn
+
+    p = mnn.layer(params["blocks"], 0)["mlp"]
+    with torch.no_grad():
+        a = blocks.apply_moe(p, x, cfg)
+        b = blocks.apply_moe(p, x, cfg)
+    return bool(torch.equal(a, b))
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe(torch, np, dev) -> int:
+    """llama4-scout-17b-a16e at full width (4 of 48 layers): the static
+    prefill + decode, then `run_continuous` with `[serve]`'s traffic and
+    arena (compress-on-evict through K6, page stacks of (4, 16, 1024)),
+    under `check_continuous`; `apply_moe` at full width bit for bit across
+    two runs. Returns K6's launches in the continuous run."""
+    from repro_torch.kernels import bot4
+    from repro_torch.launch import serve
+
+    cfg, model, params = full_width_model(torch, dev, MOE_ARCH, MOE_LAYERS)
+    x = torch.randn((1, 1024, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    check(moe_twice_equal(torch, cfg, params, x), "serve-moe: apply_moe differs between two runs")
+    del x
+    static = static_serve(torch, np, dev, cfg, model, params)
+    log("serve-moe", json.dumps(dict(arch=cfg.name, n_layers=cfg.n_layers, static=static)))
+    args = serve.parse_args(["--arch", MOE_ARCH] + SERVE_CONTINUOUS
+                            + ["--arena-pages", str(SERVE_ARENA_PAGES)])
+    torch.cuda.reset_peak_memory_stats()
+    bot4.reset_launches()
+    with ServeProbe(torch) as probe:
+        out = serve.run_continuous(args, cfg, model, params)
+    k6 = bot4.LAUNCHES["bot3d_fused"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    report = check_continuous("serve-moe", args, out, probe, k6, peak_gib)
+    check(tuple(probe.stored[0].shape) == (MOE_LAYERS, 16, cfg.n_kv_heads * cfg.dh),
+          f"serve-moe: page stack {probe.stored[0].shape}")
+    log("serve-moe", json.dumps(dict(arch=cfg.name, apply_moe_bit_for_bit=True, **report)))
+    return k6
+
+
+def _alone(torch, model, params, prompt, n: int, rows: int, max_len: int) -> list:
+    """Greedy decode of one prompt without the batcher: its own batch-1
+    prefill into a contiguous cache, copied into row 0 of a `rows`-row
+    cache whose other rows stay idle, then `n - 1` decode steps. The decode
+    batch has the batcher's shape, so both take the same matrix kernels
+    and their tokens can be held equal bit for bit."""
+    dev = model.device
+    one = model.init_cache(1, max_len)
+    logits, one = model.forward(params, {"tokens": torch.as_tensor(prompt, device=dev)[None]}, one)
+    cache = model.init_cache(rows, max_len)
+    for stack, tree in one.items():
+        if stack != "pos":
+            for key, t in tree.items():
+                cache[stack][key][:, :1].copy_(t)
+    cache["pos"] = one["pos"]
+    toks = [int(torch.argmax(logits[0, -1]))]
+    feed = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+    for _ in range(n - 1):
+        feed[0, 0] = toks[-1]
+        logits, cache = model.forward(params, {"tokens": feed}, cache)
+        toks.append(int(torch.argmax(logits[0, -1])))
+    return toks
+
+
+def phase_serve_mla(torch, np, dev) -> None:
+    """deepseek-v2-236b at full width (the dense layer and 2 MoE layers of
+    60): `apply_moe` bit for bit across two runs, the static prefill +
+    decode, then `ContinuousBatcher(paged=False)` (MLA keeps the contiguous
+    latent cache) with 4 requests on 2 slots, each token stream equal to
+    the prompt decoded alone (`_alone`)."""
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, model, params = full_width_model(torch, dev, MLA_ARCH, MLA_LAYERS)
+    check("dense_blocks" in params and cfg.moe.n_dense_layers == 1, "serve-mla: no dense layer")
+    x = torch.randn((STATIC_BATCH, STATIC_PROMPT, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    check(moe_twice_equal(torch, cfg, params, x), "serve-mla: apply_moe differs between two runs")
+    del x
+    static = static_serve(torch, np, dev, cfg, model, params)
+    log("serve-mla", json.dumps(dict(arch=cfg.name, n_layers=cfg.n_layers, static=static)))
+    rng = np.random.default_rng(0)
+    max_len = MLA_PROMPT + MLA_GEN
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, MLA_PROMPT).astype(np.int32),
+                    max_new=MLA_GEN) for i in range(MLA_REQUESTS)]
+    b = ContinuousBatcher(model, params, slots=MLA_SLOTS, max_len=max_len, eos_id=-1)
+    check(not b.paged, "serve-mla: MLA took the paged pool")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    check(all(r.done and len(r.out) == MLA_GEN for r in reqs), "serve-mla: a request did not complete")
+    for r in reqs:
+        want = _alone(torch, model, params, r.prompt, MLA_GEN, MLA_SLOTS, max_len)
+        check(r.out == want, f"serve-mla: request {r.rid}'s tokens differ from its lone decode")
+    log("serve-mla", json.dumps(dict(
+        arch=cfg.name, requests=MLA_REQUESTS, slots=MLA_SLOTS, prompt=MLA_PROMPT, gen=MLA_GEN,
+        batcher_s=run_s, tokens_per_s=MLA_REQUESTS * MLA_GEN / run_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, streams_equal_alone=True,
+        apply_moe_bit_for_bit=True)))
+
+
+def phase_moe_mla_cpu_vs_card(torch, np, dev) -> None:
+    """The reduced llama4-scout and deepseek-v2 at float32 with the CPU's
+    weights: the forward without a cache (deepseek's parallel MLA path)
+    within rtol 1e-4 and atol 1e-5 * max|logit| of the CPU's, and
+    `cpu_vs_card_decode` at the cache's tolerance (atol 1e-3 * max|logit|)
+    from the prefill on, since a prefill into the cache already reads its
+    bfloat16 keys (MLA: the absorbed path over the bfloat16 latent); the
+    reduced MoE blocks in bfloat16 bit for bit across two card runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+
+    for name in (MOE_ARCH, MLA_ARCH):
+        cfg = reduced_for_smoke(get_config(name)).scaled(dtype="float32")
+        cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+        params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)),
+                               dtype=torch.int32)
+        with torch.no_grad():
+            want, _ = cpu.forward(params, {"tokens": toks})
+            got, _ = card.forward(mnn.tree_map(lambda a: a.to(dev), params),
+                                  {"tokens": toks.to(dev)})
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max()) / scale
+        check(bool(((got.cpu() - want).abs() <= 1e-4 * want.abs() + 1e-5 * scale).all()),
+              f"{name}: card logits differ from the CPU's ({err:.3g})")
+        # a prefill into the cache already reads bfloat16 keys (MLA: latents)
+        worst = cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(0.0, 1e-3))
+        bf = cfg.scaled(dtype="bfloat16")
+        p16 = mnn.init_tree(build_model(bf, device=dev).desc(),
+                            torch.Generator(device=dev).manual_seed(2), device=dev)
+        x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev).to(torch.bfloat16)
+        check(moe_twice_equal(torch, bf, p16, x), f"{name}: reduced apply_moe differs between runs")
+        log("moe-mla-cpu-vs-card", f"reduced {name} at float32: forward within tolerance of the CPU "
+            f"(max err / max|logit| {err:.3g}), prefill and 8 decode steps too ({worst:.3g}); "
+            "bfloat16 apply_moe bit for bit across two card runs")
+
+
+def moe_mla_only(torch, np, dev) -> dict:
+    """The MoE and MLA phases alone; returns K6's launches from `[serve-moe]`."""
+    k6 = phase_serve_moe(torch, np, dev)
+    free_card(torch)
+    phase_serve_mla(torch, np, dev)
+    free_card(torch)
+    phase_moe_mla_cpu_vs_card(torch, np, dev)
+    return {"serve_moe_k6_launches": k6}
 
 
 #: the training phases (`launch.train` flags): smollm-360m at full width and
@@ -2273,9 +2542,12 @@ def main() -> int:
                         "(select_profile)")
     parser.add_argument("--serve", action="store_true",
                         help="only run the serving phases (serve_only)")
-    parser.add_argument("--decode-profile", action="store_true",
-                        help="only trace full-width decode steps (decode_profile) and print "
+    parser.add_argument("--decode-profile", nargs="?", const=SERVE_ARCH[1], metavar="ARCH",
+                        help="only trace full-width decode steps of ARCH (default "
+                        f"{SERVE_ARCH[1]}; decode_profile) and print "
                         "where their time goes as JSON")
+    parser.add_argument("--moe-mla", action="store_true",
+                        help="only run the MoE and MLA serving phases (moe_mla_only)")
     parser.add_argument("--train", action="store_true",
                         help="only run the training phases (train_only)")
     parser.add_argument("--train-profile", action="store_true",
@@ -2312,7 +2584,10 @@ def main() -> int:
     for wanted, times in ((args.bot_times, bot_times), (args.lorenzo_times, lorenzo_times),
                           (args.zfp_peak, zfp_peak), (args.select_profile, select_profile),
                           (args.kv_times, kv_times), (args.serve, serve_only),
-                          (args.decode_profile, decode_profile), (args.train, train_only),
+                          (args.decode_profile, functools.partial(
+                              decode_profile, arch=args.decode_profile)),
+                          (args.moe_mla, moe_mla_only),
+                          (args.train, train_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -2350,6 +2625,12 @@ def main() -> int:
     launches["bot3d_fused"] += k6_serve
     phase_serve_raw(torch, np, dev, served)
     del served
+    free_card(torch)
+    launches["bot3d_fused"] += phase_serve_moe(torch, np, dev)
+    free_card(torch)
+    phase_serve_mla(torch, np, dev)
+    free_card(torch)
+    phase_moe_mla_cpu_vs_card(torch, np, dev)
     phase_train(torch, np, dev)
     phase_train_ckpt(torch, np, dev)
     phase_train_cpu_vs_card(torch, np, dev)

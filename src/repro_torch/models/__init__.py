@@ -1,5 +1,6 @@
 """Model zoo, in torch: declarative param trees + plain-torch apply
-functions (port of `repro.models`; the dense decoder families so far)."""
+functions (port of `repro.models`; the decoder-only families so far:
+dense, MoE and MLA)."""
 
 from .config import ModelConfig, reduced_for_smoke
 from .model import build_model

@@ -1,12 +1,13 @@
-"""Model assembly: the dense decoder-only LM, cache-aware, declared via
-P-descriptors, in torch.
+"""Model assembly: the decoder-only LM (dense, MoE, MLA, and the vision-stub
+VLM decoder), cache-aware, declared via P-descriptors, in torch.
 
-Port of `repro.models.model` for configs without MoE and MLA (dense and
-the vision-stub VLM decoder). Layers are stacked on a leading axis as in
-the reference and run as a Python loop over that axis; under autograd
-with `cfg.remat` (the default) and no cache, each layer runs under
-`torch.utils.checkpoint`, as the reference's `jax.checkpoint` of its
-scanned layer, so a training step keeps one activation a layer.
+Port of `repro.models.model`'s `TransformerLM`. Layers are stacked on a
+leading axis as in the reference and run as a Python loop over that axis;
+under autograd with `cfg.remat` (the default) and no cache, each stacked
+layer runs under `torch.utils.checkpoint`, as the reference's
+`jax.checkpoint` of its scanned layer, so a training step keeps one
+activation a layer. The leading dense layers of an MoE config
+(`dense_blocks`) run before the stack and are not checkpointed.
 
 Public API (built by `build_model(cfg, device=...)`):
   model.desc()                          -> param descriptor tree
@@ -22,8 +23,8 @@ K/V tensors are updated in place by `forward` (see `blocks`): the
 returned cache holds the same tensors with the new rows written, and a
 new position clock.
 
-xLSTM, the Zamba2-style hybrid, encoder-decoder, MoE and MLA models are
-ROADMAP queue A item 12; `build_model` raises for them.
+xLSTM, the Zamba2-style hybrid and encoder-decoder models are ROADMAP
+queue A item 12; `build_model` raises for them.
 """
 
 from __future__ import annotations
@@ -107,25 +108,48 @@ class BaseLM:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only transformer (dense / vlm)
+# decoder-only transformer (dense / moe / mla / vlm)
 # ---------------------------------------------------------------------------
 
 
 class TransformerLM(BaseLM):
-    """Dense decoder-only LM with GQA attention."""
+    """Dense or MoE decoder-only LM; attention is GQA or MLA per config.
+
+    An MoE config with `moe.n_dense_layers` leading dense layers keeps them
+    in a second stack, `dense_blocks`, run before `blocks`; their caches
+    (and paged arenas) are a second stack too."""
+
+    def _attn_desc(self):
+        return blocks.desc_mla(self.cfg) if self.cfg.mla else blocks.desc_attn(self.cfg)
+
+    def _mlp_desc(self):
+        return blocks.desc_moe(self.cfg) if self.cfg.moe else blocks.desc_mlp(self.cfg)
+
+    def _n_dense(self) -> int:
+        return self.cfg.moe.n_dense_layers if self.cfg.moe else 0
 
     def desc(self):
         cfg = self.cfg
+        nd = self._n_dense()
         out = self._embed_desc()
-        layer = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
-        out["blocks"] = nn.stack_layers([layer] * cfg.n_layers)
+        if nd:
+            dense_layer = {"attn": self._attn_desc(), "mlp": blocks.desc_mlp(cfg)}
+            out["dense_blocks"] = nn.stack_layers([dense_layer] * nd)
+        layer = {"attn": self._attn_desc(), "mlp": self._mlp_desc()}
+        out["blocks"] = nn.stack_layers([layer] * (cfg.n_layers - nd))
         return out
 
     def _block(self, p, x, positions, cache, window=None):
         cfg = self.cfg
-        a, new_c = blocks.apply_attn(p["attn"], x, positions, cfg, cache=cache, window=window)
+        if cfg.mla:
+            a, new_c = blocks.apply_mla(p["attn"], x, positions, cfg, cache=cache)
+        else:
+            a, new_c = blocks.apply_attn(p["attn"], x, positions, cfg, cache=cache, window=window)
         x = x + a
-        x = x + blocks.apply_mlp(p["mlp"], x, cfg)
+        if cfg.moe and "router" in p["mlp"]:
+            x = x + blocks.apply_moe(p["mlp"], x, cfg)
+        else:
+            x = x + blocks.apply_mlp(p["mlp"], x, cfg)
         return x, new_c
 
     def _remat_block(self, p, x, positions, window):
@@ -141,34 +165,51 @@ class TransformerLM(BaseLM):
         # table, threaded into every layer's cache view
         paged = cache is not None and "page_table" in cache
         positions = pos0[:, None] + steps[None, :] if paged else pos0 + steps[None, :]
-        # training: each layer's activations are recomputed in the backward
-        # (the reference's jax.checkpoint of the scanned layer)
+
+        def layer_cache(stack, i):
+            if cache is None:
+                return None
+            cl = dict(nn.layer(cache[stack], i), len=pos0)
+            if paged:
+                cl["ptab"] = cache["page_table"]
+            return cl
+
+        nd = self._n_dense()
+        # the leading dense layers run first and are not checkpointed, as
+        # in the reference
+        for i, p in enumerate(nn.unstack(params["dense_blocks"], nd) if nd else []):
+            x, _ = self._block(p, x, positions, layer_cache("dense_blocks", i))
+        # training: each stacked layer's activations are recomputed in the
+        # backward (the reference's jax.checkpoint of the scanned layer)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
-        for i, p in enumerate(nn.unstack(params["blocks"], cfg.n_layers)):
+        for i, p in enumerate(nn.unstack(params["blocks"], cfg.n_layers - nd)):
             if remat:
                 x = checkpoint(self._remat_block, p, x, positions, cfg.attn_window,
                                use_reentrant=False)
                 continue
-            cl = None
-            if cache is not None:
-                cl = dict(nn.layer(cache["blocks"], i), len=pos0)
-                if paged:
-                    cl["ptab"] = cache["page_table"]
-            x, _ = self._block(p, x, positions, cl, window=cfg.attn_window)
+            x, _ = self._block(p, x, positions, layer_cache("blocks", i), window=cfg.attn_window)
         new_cache = None
         if cache is not None:
-            # the layers wrote their rows into cache["blocks"] in place
+            # the layers wrote their rows into the cache stacks in place
             new_cache = {"pos": pos0 + l, "blocks": cache["blocks"]}
+            if nd:
+                new_cache["dense_blocks"] = cache["dense_blocks"]
             if paged:
                 new_cache["page_table"] = cache["page_table"]
         return self._logits(params, x), new_cache
 
+    def _stacks(self, one: dict) -> dict:
+        nd = self._n_dense()
+        out = {"blocks": _stack_specs(one, self.cfg.n_layers - nd)}
+        if nd:
+            out["dense_blocks"] = _stack_specs(one, nd)
+        return out
+
     def cache_desc(self, batch: int, max_len: int):
         cfg = self.cfg
-        return {
-            "pos": TensorSpec((), torch.int32),
-            "blocks": _stack_specs(blocks.attn_cache_desc(cfg, batch, max_len), cfg.n_layers),
-        }
+        one = (blocks.mla_cache_desc(cfg, batch, max_len) if cfg.mla
+               else blocks.attn_cache_desc(cfg, batch, max_len))
+        return {"pos": TensorSpec((), torch.int32), **self._stacks(one)}
 
     # --- paged serving cache (DESIGN.md §9) --------------------------------
     def paged_cache_desc(self, slots: int, pages: int, page_tokens: int, max_pages: int):
@@ -177,11 +218,13 @@ class TransformerLM(BaseLM):
         allocatable pages per layer (page 0 is reserved scratch, so arenas
         are sized pages+1)."""
         cfg = self.cfg
+        if cfg.mla:
+            raise NotImplementedError("paged KV cache does not support MLA")
         one = blocks.paged_attn_cache_desc(cfg, pages, page_tokens)
         return {
             "pos": TensorSpec((slots,), torch.int32),
             "page_table": TensorSpec((slots, max_pages), torch.int32),
-            "blocks": _stack_specs(one, cfg.n_layers),
+            **self._stacks(one),
         }
 
     def init_paged_cache(self, slots: int, pages: int, page_tokens: int, max_pages: int):
@@ -190,11 +233,10 @@ class TransformerLM(BaseLM):
 
 
 def build_model(cfg: ModelConfig, device=None) -> BaseLM:
-    """The model for `cfg` on `device` (default the GPU): the dense
-    decoder-only families build; the others raise NotImplementedError."""
+    """The model for `cfg` on `device` (default the GPU): the decoder-only
+    families (dense, MoE, MLA) build; the others raise NotImplementedError."""
     kind = ("an encoder-decoder" if cfg.encdec else "xLSTM" if cfg.xlstm is not None
-            else "a hybrid" if cfg.hybrid is not None else "MoE" if cfg.moe is not None
-            else "MLA" if cfg.mla is not None else None)
+            else "a hybrid" if cfg.hybrid is not None else None)
     if kind is not None:
         raise NotImplementedError(
             f"{cfg.name}: {kind} model is not ported yet (ROADMAP queue A item 12)"

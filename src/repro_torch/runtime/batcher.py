@@ -39,6 +39,11 @@ from ..core.policy import Policy, PolicySet, as_policy_set, request_kv_name
 from . import kvcomp
 
 
+#: (short key, cache stack, tensor) of every arena whose pages evict
+_ARENA_KEYS = (("k", "blocks", "k"), ("v", "blocks", "v"),
+               ("dk", "dense_blocks", "k"), ("dv", "dense_blocks", "v"))
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -139,11 +144,15 @@ class ContinuousBatcher:
 
     # -- paged arena plumbing ------------------------------------------------
 
-    def _arenas(self):
+    def _arenas(self, cache=None):
         """(short key, arena tensor (n_layers, pages + 1, T, hkv, dh)) per
-        arena whose pages evict."""
-        blocks = self.cache["blocks"]
-        return [("k", blocks["k"]), ("v", blocks["v"])]
+        arena whose pages evict, in the reference's order: the stacked
+        layers' K and V, then the leading dense layers' (an MoE config's
+        `dense_blocks`). Of `cache` (default the batcher's): a contiguous
+        sub-cache gives its (n_layers, 1, M, hkv, dh) stacks in the same
+        order."""
+        cache = self.cache if cache is None else cache
+        return [(key, cache[stack][name]) for key, stack, name in _ARENA_KEYS if stack in cache]
 
     def _prefill(self, prompt: np.ndarray):
         """Batch-1 contiguous prefill; returns (first token, sub-cache)."""
@@ -162,8 +171,8 @@ class ContinuousBatcher:
         pt = self.page_tokens
         npg = len(pids)
         idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
-        for key, arena in self._arenas():
-            src = sub["blocks"][key]  # (nl, 1, npg*pt, hkv, dh)
+        for (_, arena), (_, src) in zip(self._arenas(), self._arenas(sub)):
+            # src: (nl, 1, npg*pt, hkv, dh)
             s = src[:, 0].reshape((src.shape[0], npg, pt) + tuple(src.shape[3:]))
             arena.index_copy_(1, idx, s.to(arena.dtype))
 
@@ -311,14 +320,19 @@ class ContinuousBatcher:
         if not self.live.any() and int(self.cache["pos"]) > 0:
             self.cache = self.model.init_cache(self.slots, self.max_len)  # reset
         slot = free[0]
-        # copy slot 0 of the sub-cache into our slot, along the first axis
-        # whose size is 1 in the sub-cache and `slots` in the main cache
-        for key, sub in sub_cache["blocks"].items():
-            main = self.cache["blocks"][key]
-            for ax in range(sub.ndim):
-                if sub.shape[ax] == 1 and main.shape[ax] == self.slots:
-                    main.narrow(ax, slot, 1).copy_(sub)
-                    break
+        # copy slot 0 of every stack of the sub-cache (`blocks`, an MoE
+        # config's `dense_blocks`; K/V, or MLA's latent `ckv`/`krope`) into
+        # our slot, along the first axis whose size is 1 in the sub-cache and
+        # `slots` in the main cache
+        for stack, tree in sub_cache.items():
+            if stack == "pos":
+                continue
+            for key, sub in tree.items():
+                main = self.cache[stack][key]
+                for ax in range(sub.ndim):
+                    if sub.shape[ax] == 1 and main.shape[ax] == self.slots:
+                        main.narrow(ax, slot, 1).copy_(sub)
+                        break
         self.cache["pos"] = torch.maximum(self.cache["pos"], sub_cache["pos"])  # shared clock
         self.tokens[slot, 0] = nxt
         self.live[slot] = True

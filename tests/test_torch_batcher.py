@@ -11,6 +11,7 @@ twice the float32 logits tolerance of tests/test_torch_models.py
 """
 
 import argparse
+import dataclasses
 import functools
 
 import jax
@@ -47,13 +48,17 @@ def _one_thread():
     torch.set_num_threads(n)
 
 @functools.cache
-def _setup(dtype="bfloat16"):
-    """The reference's test model (smollm-360m reduced, 2 layers, key 0) in
-    both packages, the port's weights copied from the reference's."""
-    rcfg = r_reduced(r_get_config("smollm-360m")).scaled(n_layers=2, dtype=dtype)
+def _setup(dtype="bfloat16", arch="smollm-360m", n_layers=2, n_dense=None):
+    """The reference's test model (smollm-360m reduced, 2 layers, key 0), or
+    another reduced `arch` (with `n_dense` leading dense layers for an MoE
+    one), in both packages, the port's weights copied from the reference's."""
+    rcfg = r_reduced(r_get_config(arch)).scaled(n_layers=n_layers, dtype=dtype)
+    cfg = reduced_for_smoke(get_config(arch)).scaled(n_layers=n_layers, dtype=dtype)
+    if n_dense is not None:
+        rcfg = rcfg.scaled(moe=dataclasses.replace(rcfg.moe, n_dense_layers=n_dense))
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, n_dense_layers=n_dense))
     rmodel = r_build_model(rcfg)
     rparams = rnn.init_tree(rmodel.desc(), jax.random.key(0))
-    cfg = reduced_for_smoke(get_config("smollm-360m")).scaled(n_layers=2, dtype=dtype)
     model = build_model(cfg, device="cpu")
     params = pnn.params_from_reference(jax.tree_util.tree_map(np.asarray, rparams), device="cpu")
     return cfg, model, params, rmodel, rparams
@@ -297,6 +302,7 @@ def _drive(b, reqs):
     return resident
 
 
+LLAMA4, DEEPSEEK = "llama4-scout-17b-a16e", "deepseek-v2-236b"
 SCENARIOS = {
     "paged": dict(kw=dict(slots=4, max_len=32, page_tokens=8), max_new=6),
     "legacy": dict(kw=dict(slots=4, max_len=32, paged=False), max_new=6),
@@ -304,6 +310,18 @@ SCENARIOS = {
                       policies="raw", max_new=20),
     "serving": dict(kw=dict(slots=2, max_len=32, page_tokens=8, arena_pages=5,
                             long_threshold=24), policies="serving", max_new=20),
+    # the MoE decoder under page pressure with lossy (K6) evictions
+    "moe-serving": dict(model=dict(arch=LLAMA4), kw=dict(
+        slots=2, max_len=32, page_tokens=8, arena_pages=5, long_threshold=24),
+        policies="serving", max_new=20),
+    # a leading dense layer: the `dense_blocks` arenas evict and restore too
+    "moe-dense-layers-serving": dict(model=dict(arch=LLAMA4, n_layers=3, n_dense=1), kw=dict(
+        slots=2, max_len=32, page_tokens=8, arena_pages=5, long_threshold=24),
+        policies="serving", max_new=20),
+    # MLA (latent cache) with a leading dense layer on the legacy cache:
+    # 4 requests on 2 slots, admitted as the shared clock allows
+    "mla-legacy-waves": dict(model=dict(arch=DEEPSEEK, n_layers=3), kw=dict(
+        slots=2, max_len=32), max_new=6),
 }
 
 
@@ -314,7 +332,7 @@ def test_token_streams_and_accounting_match_reference(scenario):
     (the lossy pages' byte counts are the kernel's exact bits on both
     sides)."""
     sc = SCENARIOS[scenario]
-    cfg, model, params, rmodel, rparams = _setup("float32")
+    cfg, model, params, rmodel, rparams = _setup("float32", **sc.get("model", {}))
     pkw, rkw = dict(sc["kw"]), dict(sc["kw"])
     if sc.get("policies") == "raw":
         pkw["policies"], rkw["policies"] = Policy.raw(), r_policy.Policy.raw()
@@ -325,7 +343,16 @@ def test_token_streams_and_accounting_match_reference(scenario):
     pb = _MarginBatcher(model, params, eos_id=-1, **pkw)
     rreqs = [rbatch.Request(rid=i, prompt=p, max_new=sc["max_new"]) for i, p in enumerate(prompts)]
     preqs = [Request(rid=i, prompt=p, max_new=sc["max_new"]) for i, p in enumerate(prompts)]
-    r_resident, p_resident = _drive(rb, rreqs), _drive(pb, preqs)
+    names, compress = [], kvcomp.compress_page
+
+    def named_compress(page, policy, **kw):
+        names.append(kw["name"])
+        return compress(page, policy, **kw)
+
+    r_resident = _drive(rb, rreqs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kvcomp, "compress_page", named_compress)
+        p_resident = _drive(pb, preqs)
     for r, p in zip(rreqs, preqs):
         assert p.done and len(p.out) == sc["max_new"]
         assert p.out == r.out, (p.rid, p.out, r.out)
@@ -334,8 +361,14 @@ def test_token_streams_and_accounting_match_reference(scenario):
     assert p_resident == r_resident
     assert len(pb.margins) == sum(len(p.out) for p in preqs)
     assert min(pb.margins) > MARGIN
-    if scenario in ("tight-raw", "serving"):
+    if "policies" in sc:
         assert pb.stats["evictions"] > 0 and pb.stats["restores"] > 0
+    if "n_dense" in sc.get("model", {}):
+        # every arena's pages were compressed on evict, the dense layers' too
+        assert pb.cache["dense_blocks"]["k"].shape[0] == 1
+        assert {"k", "v", "dk", "dv"} == {n.split("/")[-1].rstrip("0123456789") for n in names}
+    if scenario == "mla-legacy-waves":  # both stacks of latents were spliced
+        assert not pb.paged and set(pb.cache["dense_blocks"]) == {"ckv", "krope"}
 
 
 @pytest.mark.parametrize("threshold", [1, 24, 512])

@@ -889,3 +889,109 @@ def test_adamw_update_on_card_tracks_cpu(cuda_device):
                                            atol=1e-6 * float(want.abs().max()))
     assert int(states[cuda_device]["step"]) == 3
     assert states[cuda_device]["step"].dtype == torch.int32
+
+
+# -- the MoE and MLA decoders on the card -----------------------------------
+
+MOE_MLA = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
+
+
+def _reduced_pair(name, device, moe=None, **over):
+    """The reduced `name` at float32 (with `over`, and the MoE fields `moe`)
+    on the CPU and on `device`, with the same weights drawn on the CPU from
+    a seeded generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+
+    cfg = reduced_for_smoke(get_config(name)).scaled(dtype="float32", **over)
+    if moe:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, **moe))
+    cpu = build_model(cfg, device="cpu")
+    params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
+    return cfg, cpu, params, build_model(cfg, device=device), mnn.tree_map(
+        lambda a: a.to(device), params)
+
+
+@pytest.mark.parametrize("name", MOE_MLA)
+def test_moe_mla_logits_on_card_equal_cpu(cuda_device, name):
+    """float32 logits and loss of the forward without a cache (MoE routing,
+    deepseek's dense layer and parallel MLA path) on the card against the
+    CPU, TF32 off: rtol 1e-4, atol 1e-5 * max|logit|; loss to rtol 1e-5."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, cparams, card, params = _reduced_pair(name, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    want, _ = cpu.forward(cparams, batch)
+    got, _ = card.forward(params, {k: v.to(cuda_device) for k, v in batch.items()})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    loss = card.loss(params, {k: v.to(cuda_device) for k, v in batch.items()})[0]
+    np.testing.assert_allclose(float(loss), float(cpu.loss(cparams, batch)[0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", MOE_MLA)
+def test_moe_mla_cached_decode_on_card_tracks_cpu(cuda_device, name):
+    """A 12-token prefill into the contiguous cache and 6 decode steps fed
+    the CPU's greedy tokens (deepseek: the absorbed MLA path over both
+    stacks' latents): logits within 1e-3 * max|logit| (the caches hold
+    bfloat16)."""
+    cfg, cpu, cparams, card, params = _reduced_pair(name, cuda_device)
+    feed = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)).astype(np.int32))
+    ccache, gcache = cpu.init_cache(2, 24), card.init_cache(2, 24)
+    for _ in range(7):
+        want, ccache = cpu.forward(cparams, {"tokens": feed}, ccache)
+        got, gcache = card.forward(params, {"tokens": feed.to(cuda_device)}, gcache)
+        np.testing.assert_allclose(got[:, -1].cpu().numpy(), want[:, -1].numpy(), rtol=0,
+                                   atol=1e-3 * float(want[:, -1].abs().max()))
+        feed = torch.argmax(want[:, -1], dim=-1)[:, None].to(torch.int32)
+    assert int(gcache["pos"]) == int(ccache["pos"]) == 18
+
+
+@pytest.mark.parametrize("name", MOE_MLA)
+def test_apply_moe_on_card_is_deterministic(cuda_device, name):
+    """The bfloat16 MoE block twice on the same input on the card: bit for
+    bit (stable top-k, a combine in a fixed order, no atomics in the
+    sums); at float32 within rtol 1e-4 of the CPU's, with routing and
+    capacity drops (capacity_factor 0.5) the CPU's."""
+    from repro_torch.models import blocks
+    from repro_torch.models import nn as mnn
+
+    cfg, _, cparams, _, params = _reduced_pair(name, cuda_device, moe=dict(capacity_factor=0.5))
+    x = np.random.default_rng(2).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    p_card, p_cpu = mnn.layer(params["blocks"], 0)["mlp"], mnn.layer(cparams["blocks"], 0)["mlp"]
+    xb = torch.from_numpy(x).to(cuda_device).to(torch.bfloat16)
+    bf = cfg.scaled(dtype="bfloat16")
+    assert torch.equal(blocks.apply_moe(p_card, xb, bf), blocks.apply_moe(p_card, xb, bf))
+    got = blocks.apply_moe(p_card, torch.from_numpy(x).to(cuda_device), cfg)
+    want = blocks.apply_moe(p_cpu, torch.from_numpy(x), cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_moe_dense_layers_evict_on_card_invisibly(cuda_device):
+    """The reduced llama4-scout with a leading dense layer in the paged
+    batcher on the card, under page pressure at `Policy.raw()`: both
+    stacks' arenas evict and restore, and every token stream equals the
+    pressure-free run's."""
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, _, _, model, params = _reduced_pair("llama4-scout-17b-a16e", cuda_device,
+                                             moe=dict(n_dense_layers=1), n_layers=3)
+    prompts = _serving_prompts(cfg, 6, 4, 12)
+
+    def run(arena_pages):
+        b = ContinuousBatcher(model, params, slots=2, max_len=32, eos_id=-1, page_tokens=8,
+                              arena_pages=arena_pages, policies=Policy.raw())
+        reqs = [Request(rid=i, prompt=p, max_new=20) for i, p in enumerate(prompts)]
+        b.run(reqs)
+        return reqs, b
+
+    calm_reqs, calm = run(None)
+    tight_reqs, tight = run(5)
+    assert "dense_blocks" in tight.cache and tight.cache["dense_blocks"]["k"].device.type == "cuda"
+    assert calm.stats["evictions"] == 0
+    assert tight.stats["evictions"] > 0 and tight.stats["restores"] > 0
+    assert [r.out for r in calm_reqs] == [r.out for r in tight_reqs]
