@@ -881,14 +881,15 @@ def phase_kv(torch, np, dev, times: dict | None = None):
     return {"bot3d_fused": k6_launches, "bot2d_fused": k5_launches}
 
 
-def cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(1e-4, 1e-5)) -> float:
+def cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(1e-4, 1e-5)) -> tuple[float, float]:
     """`cfg` (a float32 config) on the CPU and on the card with the same
     weights: a 64-token prefill and 8 cached decode steps fed the CPU's
     greedy tokens. Logits within rtol, atol * max|logit| = `prefill_tol`
     after the prefill, and atol 1e-3 * max|logit| after decode steps (the
     caches hold bfloat16, where a float32 value an ulp apart can round to
     the other neighbour); the same greedy token wherever the CPU's top-2
-    margin exceeds twice that. Returns the worst max err / max|logit|."""
+    margin exceeds twice that. Returns max err / max|logit| after the
+    prefill and the worst over all 9 steps."""
     from repro_torch.models import build_model
     from repro_torch.models import nn as mnn
 
@@ -910,7 +911,7 @@ def cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(1e-4, 1e-5)) -> float:
 
     want = run(cpu, params)
     got = run(card, mnn.tree_map(lambda a: a.to(dev), params))
-    worst = 0.0
+    errs = []
     for i, (g, w) in enumerate(zip(got, want)):
         scale = float(w.abs().max())
         tol = (prefill_tol[0] * w.abs() + prefill_tol[1] * scale) if i == 0 else 1e-3 * scale
@@ -921,8 +922,8 @@ def cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(1e-4, 1e-5)) -> float:
         clear = (top[:, 0] - top[:, 1]) > 2 * 1e-3 * scale
         check(torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]),
               f"{cfg.name}: card token differs at {i}")
-        worst = max(worst, float((g - w).abs().max()) / scale)
-    return worst
+        errs.append(float((g - w).abs().max()) / scale)
+    return errs[0], max(errs)
 
 
 def phase_serve_cpu_vs_card(torch, np, dev):
@@ -933,9 +934,26 @@ def phase_serve_cpu_vs_card(torch, np, dev):
     from repro_torch.models import reduced_for_smoke
 
     cfg = reduced_for_smoke(get_config("phi4-mini-3.8b")).scaled(dtype="float32")
-    worst = cpu_vs_card_decode(torch, np, dev, cfg)
+    prefill, worst = cpu_vs_card_decode(torch, np, dev, cfg)
     log("serve-cpu-vs-card", f"reduced {cfg.name} at float32: prefill and 8 decode steps on the "
-        f"card within tolerance of the CPU (max err / max|logit| {worst:.3g})")
+        f"card within tolerance of the CPU (max err / max|logit| {prefill:.3g} after the cached "
+        f"prefill, {worst:.3g} at worst)")
+
+
+def static_report(torch, args, out: dict, vocab: int) -> dict:
+    """The checks and numbers of one `serve.run_static` (the loop
+    `serve.main` runs): `args.gen` tokens a row within the vocabulary;
+    prefill ms, decode ms per step and tok/s over the whole decode loop,
+    peak memory since the caller's reset."""
+    toks = out["tokens"]
+    check(toks.shape == (args.batch, args.gen) and 0 <= toks.min() and toks.max() < vocab,
+          f"{args.arch}: static tokens {toks.shape}, range [{toks.min()}, {toks.max()}]")
+    steps = args.gen - 1
+    return dict(
+        arch=args.arch, batch=args.batch, prompt=args.prompt_len, gen=args.gen,
+        prefill_ms=out["prefill_s"] * 1e3, decode_ms_per_step=out["decode_s"] * 1e3 / steps,
+        decode_tok_s=args.batch * steps / out["decode_s"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def phase_serve_static(torch, np, dev):
@@ -949,16 +967,7 @@ def phase_serve_static(torch, np, dev):
     torch.cuda.reset_peak_memory_stats()
     out = serve.main(SERVE_ARCH + SERVE_STATIC)
     args = serve.parse_args(SERVE_ARCH + SERVE_STATIC)
-    toks = out["tokens"]
-    vocab = get_config(args.arch).vocab
-    check(toks.shape == (args.batch, args.gen) and 0 <= toks.min() and toks.max() < vocab,
-          f"serve-static: tokens {toks.shape}, range [{toks.min()}, {toks.max()}]")
-    steps = args.gen - 1
-    log("serve-static", json.dumps(dict(
-        arch=args.arch, batch=args.batch, prompt=args.prompt_len, gen=args.gen,
-        prefill_ms=out["prefill_s"] * 1e3, decode_ms_per_step=out["decode_s"] * 1e3 / steps,
-        decode_tok_s=args.batch * steps / out["decode_s"],
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)))
+    log("serve-static", json.dumps(static_report(torch, args, out, get_config(args.arch).vocab)))
 
 
 class ServeProbe:
@@ -1223,10 +1232,11 @@ def serve_only(torch, np, dev) -> dict:
 #: 60 layers)
 MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 4
 MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 3
-#: the static prefill + decode of both (`[serve-static]`'s shapes)
-STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 4, 64, 32
-#: `[serve-mla]`'s legacy batcher: 4 requests on 2 slots
-MLA_REQUESTS, MLA_SLOTS, MLA_PROMPT, MLA_GEN = 4, 2, 64, 16
+#: `[serve-mla]`'s legacy batcher: 4 requests on 1 slot. Its slots share one
+#: clock and admit only at clock 0, so a second slot would never be admitted
+#: once the first request's prefill has moved the clock: each request is a
+#: wave of its own.
+MLA_REQUESTS, MLA_SLOTS, MLA_PROMPT, MLA_GEN = 4, 1, 64, 16
 
 
 def full_width_model(torch, dev, name: str, n_layers: int):
@@ -1247,43 +1257,14 @@ def full_width_model(torch, dev, name: str, n_layers: int):
     return cfg, model, params
 
 
-def static_serve(torch, np, dev, cfg, model, params) -> dict:
-    """A batch of `STATIC_BATCH` prompts of `STATIC_PROMPT` tokens through
-    `make_prefill_step`, then `STATIC_GEN - 1` greedy steps through
-    `make_decode_step` on the contiguous cache, each call timed between
-    synchronizes (after one untimed prefill): prefill ms, the median decode
-    ms a step, tok/s, peak."""
-    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+def static_serve(torch, name: str, cfg, model, params) -> dict:
+    """`serve.run_static`, the loop `[serve-static]` times through
+    `serve.main`, at `[serve-static]`'s shapes on a model built here."""
+    from repro_torch.launch import serve
 
-    toks = torch.as_tensor(
-        np.random.default_rng(0).integers(1, cfg.vocab, (STATIC_BATCH, STATIC_PROMPT)),
-        dtype=torch.int32, device=dev)
+    args = serve.parse_args(["--arch", name] + SERVE_STATIC)
     torch.cuda.reset_peak_memory_stats()
-    cache = model.init_cache(STATIC_BATCH, STATIC_PROMPT + STATIC_GEN)
-    prefill, decode = make_prefill_step(model), make_decode_step(model)
-    prefill(params, {"tokens": toks}, model.init_cache(STATIC_BATCH, STATIC_PROMPT))  # warm-up
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": toks}, cache)
-    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    out, step_ms = [nxt], []
-    for _ in range(STATIC_GEN - 1):
-        t = time.perf_counter()
-        nxt, cache = decode(params, nxt, cache)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        out.append(nxt)
-    out = torch.cat(out, dim=1)
-    check(tuple(out.shape) == (STATIC_BATCH, STATIC_GEN) and int(out.min()) >= 0
-          and int(out.max()) < cfg.vocab, f"{cfg.name}: static tokens {tuple(out.shape)}")
-    check(int(cache["pos"]) == STATIC_PROMPT + STATIC_GEN - 1, f"{cfg.name}: cache clock")
-    return dict(batch=STATIC_BATCH, prompt=STATIC_PROMPT, gen=STATIC_GEN, prefill_ms=prefill_ms,
-                decode_ms_per_step=statistics.median(step_ms),
-                decode_ms_range=[min(step_ms), max(step_ms)],
-                decode_tok_s=STATIC_BATCH * len(step_ms) / (sum(step_ms) / 1e3),
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return static_report(torch, args, serve.run_static(args, cfg, model, params), cfg.vocab)
 
 
 def moe_twice_equal(torch, cfg, params, x) -> bool:
@@ -1305,12 +1286,39 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def check_k6_on_path(torch, tag: str, probe) -> int:
+    """K6 against its plain version at the shape and bounds a serving run
+    gave it: each lossy stack's copy taken at evict, at the bound solved
+    for it there, through `bot4.bot3d_fused` and `ref.bot_fused_ref`; bits
+    equal, recon bit for bit, and the kernel's recon and byte count equal
+    to what the eviction stored. Call it after reading the run's launch
+    count. Returns the stacks checked."""
+    from repro_torch.kernels import bot4, ref
+
+    lossy = [cp for cp in probe.stored if cp.codec == "bot"]
+    for i, cp in enumerate(lossy):
+        page = probe.copies[id(cp)].float().contiguous()
+        recon, bits = bot4.bot3d_fused(page, cp.eb)
+        want_r, want_b = ref.bot_fused_ref(page, cp.eb)
+        where = f"{tag}: lossy stack {i} {tuple(page.shape)} at eb={cp.eb}"
+        check(torch.equal(bits, want_b), f"{where}: K6 bits differ from the plain version")
+        check(same_bits(torch, recon, want_r), f"{where}: K6 recon differs from the plain version")
+        stored = cp.payload.to(recon.device)
+        check(torch.equal(recon.to(stored.dtype).view(torch.int16), stored.view(torch.int16)),
+              f"{where}: the stored recon is not K6's")
+        check(cp.nbytes == -(-int(float(want_b.sum(dtype=torch.float64))) // 8),
+              f"{where}: stored {cp.nbytes} bytes for another bit count")
+    return len(lossy)
+
+
 def phase_serve_moe(torch, np, dev) -> int:
     """llama4-scout-17b-a16e at full width (4 of 48 layers): the static
     prefill + decode, then `run_continuous` with `[serve]`'s traffic and
     arena (compress-on-evict through K6, page stacks of (4, 16, 1024)),
-    under `check_continuous`; `apply_moe` at full width bit for bit across
-    two runs. Returns K6's launches in the continuous run."""
+    under `check_continuous`, and K6 against its plain version on every
+    lossy stack the run evicted (`check_k6_on_path`); `apply_moe` at full
+    width bit for bit across two runs. Returns K6's launches in the
+    continuous run."""
     from repro_torch.kernels import bot4
     from repro_torch.launch import serve
 
@@ -1319,7 +1327,7 @@ def phase_serve_moe(torch, np, dev) -> int:
                     device=dev).to(torch.bfloat16)
     check(moe_twice_equal(torch, cfg, params, x), "serve-moe: apply_moe differs between two runs")
     del x
-    static = static_serve(torch, np, dev, cfg, model, params)
+    static = static_serve(torch, MOE_ARCH, cfg, model, params)
     log("serve-moe", json.dumps(dict(arch=cfg.name, n_layers=cfg.n_layers, static=static)))
     args = serve.parse_args(["--arch", MOE_ARCH] + SERVE_CONTINUOUS
                             + ["--arena-pages", str(SERVE_ARENA_PAGES)])
@@ -1332,7 +1340,9 @@ def phase_serve_moe(torch, np, dev) -> int:
     report = check_continuous("serve-moe", args, out, probe, k6, peak_gib)
     check(tuple(probe.stored[0].shape) == (MOE_LAYERS, 16, cfg.n_kv_heads * cfg.dh),
           f"serve-moe: page stack {probe.stored[0].shape}")
-    log("serve-moe", json.dumps(dict(arch=cfg.name, apply_moe_bit_for_bit=True, **report)))
+    k6_checked = check_k6_on_path(torch, "serve-moe", probe)
+    log("serve-moe", json.dumps(dict(arch=cfg.name, apply_moe_bit_for_bit=True,
+                                     k6_path_stacks_bit_for_bit=k6_checked, **report)))
     return k6
 
 
@@ -1364,18 +1374,18 @@ def phase_serve_mla(torch, np, dev) -> None:
     """deepseek-v2-236b at full width (the dense layer and 2 MoE layers of
     60): `apply_moe` bit for bit across two runs, the static prefill +
     decode, then `ContinuousBatcher(paged=False)` (MLA keeps the contiguous
-    latent cache) with 4 requests on 2 slots, each token stream equal to
-    the prompt decoded alone (`_alone`)."""
+    latent cache) with 4 requests on 1 slot, admitted one wave each, each
+    token stream equal to the prompt decoded alone (`_alone`)."""
     from repro_torch.runtime.batcher import ContinuousBatcher, Request
 
     cfg, model, params = full_width_model(torch, dev, MLA_ARCH, MLA_LAYERS)
     check("dense_blocks" in params and cfg.moe.n_dense_layers == 1, "serve-mla: no dense layer")
-    x = torch.randn((STATIC_BATCH, STATIC_PROMPT, cfg.d_model),
+    x = torch.randn((4, 64, cfg.d_model),
                     generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev).to(torch.bfloat16)
     check(moe_twice_equal(torch, cfg, params, x), "serve-mla: apply_moe differs between two runs")
     del x
-    static = static_serve(torch, np, dev, cfg, model, params)
+    static = static_serve(torch, MLA_ARCH, cfg, model, params)
     log("serve-mla", json.dumps(dict(arch=cfg.name, n_layers=cfg.n_layers, static=static)))
     rng = np.random.default_rng(0)
     max_len = MLA_PROMPT + MLA_GEN
@@ -1427,7 +1437,7 @@ def phase_moe_mla_cpu_vs_card(torch, np, dev) -> None:
         check(bool(((got.cpu() - want).abs() <= 1e-4 * want.abs() + 1e-5 * scale).all()),
               f"{name}: card logits differ from the CPU's ({err:.3g})")
         # a prefill into the cache already reads bfloat16 keys (MLA: latents)
-        worst = cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(0.0, 1e-3))
+        prefill, worst = cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(0.0, 1e-3))
         bf = cfg.scaled(dtype="bfloat16")
         p16 = mnn.init_tree(build_model(bf, device=dev).desc(),
                             torch.Generator(device=dev).manual_seed(2), device=dev)
@@ -1435,7 +1445,8 @@ def phase_moe_mla_cpu_vs_card(torch, np, dev) -> None:
                         device=dev).to(torch.bfloat16)
         check(moe_twice_equal(torch, bf, p16, x), f"{name}: reduced apply_moe differs between runs")
         log("moe-mla-cpu-vs-card", f"reduced {name} at float32: forward within tolerance of the CPU "
-            f"(max err / max|logit| {err:.3g}), prefill and 8 decode steps too ({worst:.3g}); "
+            f"(max err / max|logit| {err:.3g}), the cached prefill ({prefill:.3g}) and 8 decode "
+            f"steps too ({worst:.3g} at worst); "
             "bfloat16 apply_moe bit for bit across two card runs")
 
 

@@ -158,6 +158,14 @@ def main(argv=None) -> dict:
     cfg, model, params = build(args)
     if args.continuous:
         return run_continuous(args, cfg, model, params)
+    return run_static(args, cfg, model, params)
+
+
+def run_static(args, cfg, model, params) -> dict:
+    """A batch of `args.batch` prompts of `args.prompt_len` tokens through
+    one prefill, then `args.gen - 1` decode steps on the contiguous cache:
+    the tokens, the prefill's seconds and the decode loop's seconds, each
+    timed between synchronizes."""
     dev = model.device
 
     rng = np.random.default_rng(0)
