@@ -86,7 +86,15 @@ phase that goes wrong:
    alone; both check `apply_moe` bit for bit across two runs;
    `[moe-mla-cpu-vs-card]` holds the reduced models on the card to the CPU
    (float32 logits without a cache, then a cached prefill and 8 decode
-   steps);
+   steps); then the recurrent families at their full published width and
+   depth, which have no paged cache: `[serve-hybrid]` serves zamba2-1.2b
+   (38 Mamba2 layers, SSD chunk 256, the shared attention after each
+   group of 6) and `[serve-xlstm]` xlstm-1.3b (6 groups of 7 mLSTM + 1
+   sLSTM), each with a static prefill + decode (batch 4, prompt 64, gen
+   32) and the legacy contiguous batcher (4 requests of 64/300/64/300
+   tokens on 2 slots, 16 new each), every stream equal to its prompt
+   decoded alone; `[recurrent-cpu-vs-card]` holds their reduced models on
+   the card to the CPU as `[moe-mla-cpu-vs-card]` does;
 12. training at the full width and depth of smollm-360m (409.0 M float32
    parameters drawn on the card from a generator seeded 0): `[train]` runs
    `launch.train.main` for 20 steps (batch 8 of 256 tokens) with
@@ -123,6 +131,7 @@ turns (parent, change, change, parent) to compare them on one card.
 does the same for K1/K2 (`lorenzo_times`), and `--kv-times` for the KV
 page tier's evict and restore (`kv_times`). `--serve` runs only the
 phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
+`--recurrent` only the zamba2-1.2b and xlstm-1.3b ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 and `--train-profile` traces three full-width train steps
@@ -1239,21 +1248,23 @@ MLA_ARCH, MLA_LAYERS = "deepseek-v2-236b", 3
 MLA_REQUESTS, MLA_SLOTS, MLA_PROMPT, MLA_GEN = 4, 1, 64, 16
 
 
-def full_width_model(torch, dev, name: str, n_layers: int):
-    """(cfg, model, params): `name` at full width cut to `n_layers`, its
-    float32 weights drawn on the card from a generator seeded 0."""
+def full_width_model(torch, dev, name: str, n_layers: int | None = None):
+    """(cfg, model, params): `name` at full width cut to `n_layers` (None:
+    its full depth), its float32 weights drawn on the card from a
+    generator seeded 0."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models import nn as mnn
 
-    cfg = get_config(name).scaled(n_layers=n_layers)
+    cfg = get_config(name)
+    cfg = cfg.scaled(n_layers=n_layers or cfg.n_layers)
     model = build_model(cfg, device=dev)
     t0 = time.perf_counter()
     params = mnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n = sum(a.numel() for a in _leaves(params))
-    log(name, f"{n:,} float32 parameters ({n * 4 / 1e9:.1f} GB) in {n_layers} layers drawn on "
-        f"the card in {time.perf_counter() - t0:.2f} s")
+    log(name, f"{n:,} float32 parameters ({n * 4 / 1e9:.1f} GB) in {cfg.n_layers} layers drawn "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
     return cfg, model, params
 
 
@@ -1348,18 +1359,18 @@ def phase_serve_moe(torch, np, dev) -> int:
 
 def _alone(torch, model, params, prompt, n: int, rows: int, max_len: int) -> list:
     """Greedy decode of one prompt without the batcher: its own batch-1
-    prefill into a contiguous cache, copied into row 0 of a `rows`-row
-    cache whose other rows stay idle, then `n - 1` decode steps. The decode
-    batch has the batcher's shape, so both take the same matrix kernels
-    and their tokens can be held equal bit for bit."""
+    prefill into a contiguous cache, copied leaf by leaf into row 0 of a
+    `rows`-row cache whose other rows stay idle (along the batch axis the
+    batcher's splice finds, `splice_rows`), then `n - 1` decode steps.
+    The decode batch has the batcher's shape, so both take the same matrix
+    kernels and their tokens can be held equal bit for bit."""
+    from repro_torch.runtime.batcher import splice_rows
+
     dev = model.device
     one = model.init_cache(1, max_len)
     logits, one = model.forward(params, {"tokens": torch.as_tensor(prompt, device=dev)[None]}, one)
     cache = model.init_cache(rows, max_len)
-    for stack, tree in one.items():
-        if stack != "pos":
-            for key, t in tree.items():
-                cache[stack][key][:, :1].copy_(t)
+    splice_rows(cache, one, 0, rows)
     cache["pos"] = one["pos"]
     toks = [int(torch.argmax(logits[0, -1]))]
     feed = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
@@ -1410,6 +1421,28 @@ def phase_serve_mla(torch, np, dev) -> None:
         apply_moe_bit_for_bit=True)))
 
 
+def cpu_vs_card_forward(torch, np, dev, cfg) -> float:
+    """`cfg` (a float32 config) without a cache on the CPU and on the card
+    with the same weights (a generator seeded 0), 2 x 40 tokens: logits
+    within rtol 1e-4 and atol 1e-5 * max|logit|. Returns max err /
+    max|logit|."""
+    from repro_torch.models import build_model
+    from repro_torch.models import nn as mnn
+
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+    params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)),
+                           dtype=torch.int32)
+    with torch.no_grad():
+        want, _ = cpu.forward(params, {"tokens": toks})
+        got, _ = card.forward(mnn.tree_map(lambda a: a.to(dev), params), {"tokens": toks.to(dev)})
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max()) / scale
+    check(bool(((got.cpu() - want).abs() <= 1e-4 * want.abs() + 1e-5 * scale).all()),
+          f"{cfg.name}: card logits differ from the CPU's ({err:.3g})")
+    return err
+
+
 def phase_moe_mla_cpu_vs_card(torch, np, dev) -> None:
     """The reduced llama4-scout and deepseek-v2 at float32 with the CPU's
     weights: the forward without a cache (deepseek's parallel MLA path)
@@ -1424,18 +1457,7 @@ def phase_moe_mla_cpu_vs_card(torch, np, dev) -> None:
 
     for name in (MOE_ARCH, MLA_ARCH):
         cfg = reduced_for_smoke(get_config(name)).scaled(dtype="float32")
-        cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
-        params = mnn.init_tree(cpu.desc(), torch.Generator().manual_seed(0), device="cpu")
-        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)),
-                               dtype=torch.int32)
-        with torch.no_grad():
-            want, _ = cpu.forward(params, {"tokens": toks})
-            got, _ = card.forward(mnn.tree_map(lambda a: a.to(dev), params),
-                                  {"tokens": toks.to(dev)})
-        scale = float(want.abs().max())
-        err = float((got.cpu() - want).abs().max()) / scale
-        check(bool(((got.cpu() - want).abs() <= 1e-4 * want.abs() + 1e-5 * scale).all()),
-              f"{name}: card logits differ from the CPU's ({err:.3g})")
+        err = cpu_vs_card_forward(torch, np, dev, cfg)
         # a prefill into the cache already reads bfloat16 keys (MLA: latents)
         prefill, worst = cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(0.0, 1e-3))
         bf = cfg.scaled(dtype="bfloat16")
@@ -1458,6 +1480,83 @@ def moe_mla_only(torch, np, dev) -> dict:
     free_card(torch)
     phase_moe_mla_cpu_vs_card(torch, np, dev)
     return {"serve_moe_k6_launches": k6}
+
+
+#: the recurrent families at their full published width and depth:
+#: zamba2-1.2b (38 Mamba2 layers in 6 groups of 6 and a tail of 2, each
+#: group followed by the shared attention; 1.18 B float32 parameters) and
+#: xlstm-1.3b (6 groups of 7 mLSTM + 1 sLSTM; 3.53 B, its wq/wk/wv d_in x
+#: d_in as in the reference). Neither has a paged cache, so both serve on
+#: the legacy contiguous batcher: 4 requests on 2 slots, prompts of 64 and
+#: 300 tokens (300 crosses the 256-token chunk), 16 new tokens each. Its
+#: shared clock admits only at clock 0, so each request is a wave of its
+#: own and the second slot decodes idle.
+HYBRID_ARCH, XLSTM_ARCH = "zamba2-1.2b", "xlstm-1.3b"
+REC_PROMPTS, REC_SLOTS, REC_GEN = (64, 300, 64, 300), 2, 16
+
+
+def phase_serve_recurrent(torch, np, dev, tag: str, name: str) -> dict:
+    """`name` at full width and depth: `serve.run_static` (batch 4, prompt
+    64, gen 32), then `ContinuousBatcher` on the legacy contiguous cache
+    with `REC_PROMPTS` on `REC_SLOTS` slots, each request's 16 tokens
+    equal to its prompt decoded alone (`_alone`)."""
+    from repro_torch.runtime.batcher import ContinuousBatcher, Request
+
+    cfg, model, params = full_width_model(torch, dev, name)
+    static = static_serve(torch, name, cfg, model, params)
+    log(tag, json.dumps(dict(arch=cfg.name, n_layers=cfg.n_layers, static=static)))
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n).astype(np.int32),
+                    max_new=REC_GEN) for i, n in enumerate(REC_PROMPTS)]
+    max_len = max(REC_PROMPTS) + REC_GEN
+    b = ContinuousBatcher(model, params, slots=REC_SLOTS, max_len=max_len, eos_id=-1)
+    check(not b.paged, f"{tag}: {name} took the paged pool")
+    resident = b.resident_kv_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(r.done and len(r.out) == REC_GEN for r in reqs), f"{tag}: a request did not complete")
+    for r in reqs:
+        want = _alone(torch, model, params, r.prompt, REC_GEN, REC_SLOTS, max_len)
+        check(r.out == want, f"{tag}: request {r.rid}'s tokens differ from its lone decode")
+    report = dict(arch=cfg.name, requests=len(reqs), prompts=list(REC_PROMPTS), slots=REC_SLOTS,
+                  gen=REC_GEN, batcher_s=run_s, tokens_per_s=len(reqs) * REC_GEN / run_s,
+                  resident_kv_bytes=resident, peak_gib=peak, streams_equal_alone=True)
+    log(tag, json.dumps(report))
+    return dict(static=static, batcher=report)
+
+
+def phase_recurrent_cpu_vs_card(torch, np, dev) -> None:
+    """The reduced zamba2-1.2b and xlstm-1.3b at float32 with the CPU's
+    weights: the forward without a cache within rtol 1e-4 and atol 1e-5 *
+    max|logit| of the CPU's, then `cpu_vs_card_decode` (a cached prefill
+    and 8 greedy decode steps) at the cache's tolerance, atol 1e-3 *
+    max|logit| from the prefill on (the hybrid's prefill reads bfloat16
+    keys back from its cache, xLSTM's conv state is bfloat16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
+
+    for name in (HYBRID_ARCH, XLSTM_ARCH):
+        cfg = reduced_for_smoke(get_config(name)).scaled(dtype="float32")
+        err = cpu_vs_card_forward(torch, np, dev, cfg)
+        prefill, worst = cpu_vs_card_decode(torch, np, dev, cfg, prefill_tol=(0.0, 1e-3))
+        log("recurrent-cpu-vs-card", f"reduced {name} at float32: forward within tolerance of the "
+            f"CPU (max err / max|logit| {err:.3g}), the cached prefill ({prefill:.3g}) and 8 "
+            f"decode steps too ({worst:.3g} at worst)")
+
+
+def recurrent_only(torch, np, dev) -> dict:
+    """The recurrent families' phases alone; returns their reports."""
+    out = {}
+    for tag, name in (("serve-hybrid", HYBRID_ARCH), ("serve-xlstm", XLSTM_ARCH)):
+        out[tag] = phase_serve_recurrent(torch, np, dev, tag, name)
+        free_card(torch)
+    phase_recurrent_cpu_vs_card(torch, np, dev)
+    return out
 
 
 #: the training phases (`launch.train` flags): smollm-360m at full width and
@@ -2559,6 +2658,8 @@ def main() -> int:
                         "where their time goes as JSON")
     parser.add_argument("--moe-mla", action="store_true",
                         help="only run the MoE and MLA serving phases (moe_mla_only)")
+    parser.add_argument("--recurrent", action="store_true",
+                        help="only run the zamba2-1.2b and xlstm-1.3b phases (recurrent_only)")
     parser.add_argument("--train", action="store_true",
                         help="only run the training phases (train_only)")
     parser.add_argument("--train-profile", action="store_true",
@@ -2598,6 +2699,7 @@ def main() -> int:
                           (args.decode_profile, functools.partial(
                               decode_profile, arch=args.decode_profile)),
                           (args.moe_mla, moe_mla_only),
+                          (args.recurrent, recurrent_only),
                           (args.train, train_only),
                           (args.train_profile, train_profile)):
         if wanted:
@@ -2642,6 +2744,9 @@ def main() -> int:
     phase_serve_mla(torch, np, dev)
     free_card(torch)
     phase_moe_mla_cpu_vs_card(torch, np, dev)
+    free_card(torch)
+    recurrent_only(torch, np, dev)
+    free_card(torch)
     phase_train(torch, np, dev)
     phase_train_ckpt(torch, np, dev)
     phase_train_cpu_vs_card(torch, np, dev)

@@ -1,6 +1,6 @@
 """Model zoo, in torch: declarative param trees + plain-torch apply
-functions (port of `repro.models`; the decoder-only families so far:
-dense, MoE and MLA)."""
+functions (port of `repro.models`; so far the decoder-only families
+(dense, MoE, MLA), xLSTM and the Zamba2-style hybrid)."""
 
 from .config import ModelConfig, reduced_for_smoke
 from .model import build_model

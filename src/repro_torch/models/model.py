@@ -1,30 +1,33 @@
 """Model assembly: the decoder-only LM (dense, MoE, MLA, and the vision-stub
-VLM decoder), cache-aware, declared via P-descriptors, in torch.
+VLM decoder), xLSTM and the Zamba2-style hybrid, cache-aware, declared via
+P-descriptors, in torch.
 
-Port of `repro.models.model`'s `TransformerLM`. Layers are stacked on a
-leading axis as in the reference and run as a Python loop over that axis;
-under autograd with `cfg.remat` (the default) and no cache, each stacked
-layer runs under `torch.utils.checkpoint`, as the reference's
-`jax.checkpoint` of its scanned layer, so a training step keeps one
-activation a layer. The leading dense layers of an MoE config
-(`dense_blocks`) run before the stack and are not checkpointed.
+Port of `repro.models.model`'s `TransformerLM`, `XLSTMLM` and `HybridLM`.
+Layers are stacked on a leading axis as in the reference and run as a
+Python loop over that axis; under autograd with `cfg.remat` (the default)
+and no cache, each unit the reference scans (a transformer layer, an
+xLSTM group, a Mamba layer) runs under `torch.utils.checkpoint`, as the
+reference's `jax.checkpoint` of its scanned body, so a training step keeps
+one activation a unit. The leading dense layers of an MoE config
+(`dense_blocks`) and the hybrid's shared attention run outside it, as in
+the reference.
 
 Public API (built by `build_model(cfg, device=...)`):
   model.desc()                          -> param descriptor tree
   model.forward(params, batch, cache)   -> (logits, new_cache)
   model.loss(params, batch)             -> (loss, metrics)
   model.cache_desc(batch, max_len)      -> cache TensorSpec tree
-  model.init_cache(batch, max_len)      -> zero-initialized cache
+  model.init_cache(batch, max_len)      -> initialized cache
   model.decode_step(params, tok, cache) -> (logits, new_cache)
 
 The model's `device` (default the GPU, see `repro_torch.device`) is where
 its caches live; params and batches are expected there too. A cache's
-K/V tensors are updated in place by `forward` (see `blocks`): the
-returned cache holds the same tensors with the new rows written, and a
-new position clock.
+tensors (K/V rows, recurrent states) are updated in place by `forward`:
+the returned cache holds the same tensors with the new values written,
+and a new position clock.
 
-xLSTM, the Zamba2-style hybrid and encoder-decoder models are ROADMAP
-queue A item 12; `build_model` raises for them.
+The encoder-decoder model is ROADMAP queue A item 12; `build_model`
+raises for it.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
-from . import blocks, nn
+from . import blocks, nn, ssm, xlstm
 from .config import ModelConfig
 from .nn import P, TensorSpec, dense, rms_norm, shard
 
@@ -46,8 +49,11 @@ def _zeros_cache(desc_tree, device: torch.device):
     return nn.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), desc_tree)
 
 
-def _stack_specs(one: dict, n: int) -> dict:
-    return {k: TensorSpec((n,) + s.shape, s.dtype) for k, s in one.items() if k != "len"}
+def _stack_specs(tree: dict, *lead: int) -> dict:
+    """The specs of `tree` (nested dicts) stacked on the leading axes
+    `lead`, without a per-layer 'len'."""
+    return {k: _stack_specs(s, *lead) if isinstance(s, dict) else TensorSpec(lead + s.shape, s.dtype)
+            for k, s in tree.items() if k != "len"}
 
 
 class BaseLM:
@@ -232,13 +238,173 @@ class TransformerLM(BaseLM):
                             self.device)
 
 
+# ---------------------------------------------------------------------------
+# xLSTM (groups of m mLSTM + s sLSTM)
+# ---------------------------------------------------------------------------
+
+
+class XLSTMLM(BaseLM):
+    """Groups of `m_per_group` mLSTM blocks then `s_per_group` sLSTM
+    blocks, stacked over groups (`groups/{m,s}`, each stacked again over
+    its blocks)."""
+
+    def _gcount(self) -> int:
+        xc = self.cfg.xlstm
+        per = xc.m_per_group + xc.s_per_group
+        if self.cfg.n_layers % per:
+            raise ValueError(f"{self.cfg.name}: {self.cfg.n_layers} layers are not whole "
+                             f"groups of {per}")
+        return self.cfg.n_layers // per
+
+    def desc(self):
+        cfg = self.cfg
+        xc = cfg.xlstm
+        group = {
+            "m": nn.stack_layers([xlstm.desc_mlstm(cfg)] * xc.m_per_group),
+            "s": nn.stack_layers([xlstm.desc_slstm(cfg)] * xc.s_per_group),
+        }
+        out = self._embed_desc()
+        out["groups"] = nn.stack_layers([group] * self._gcount())
+        return out
+
+    def _group(self, gp, x, gc=None):
+        cfg = self.cfg
+        xc = cfg.xlstm
+        for i, p in enumerate(nn.unstack(gp["m"], xc.m_per_group)):
+            y, _ = xlstm.apply_mlstm(p, x, cfg, cache=None if gc is None else nn.layer(gc["m"], i))
+            x = x + y
+        for i, p in enumerate(nn.unstack(gp["s"], xc.s_per_group)):
+            y, _ = xlstm.apply_slstm(p, x, cfg, cache=None if gc is None else nn.layer(gc["s"], i))
+            x = x + y
+        return x
+
+    def forward(self, params, batch, cache=None):
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        # training: each group's activations are recomputed in the backward
+        # (the reference's jax.checkpoint of the scanned group)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        for i, gp in enumerate(nn.unstack(params["groups"], self._gcount())):
+            if remat:
+                x = checkpoint(self._group, gp, x, use_reentrant=False)
+            else:
+                x = self._group(gp, x, None if cache is None else nn.layer(cache["groups"], i))
+        new_cache = None
+        if cache is not None:
+            # the blocks wrote their states into the cache stacks in place
+            new_cache = {"pos": cache["pos"] + x.shape[1], "groups": cache["groups"]}
+        return self._logits(params, x), new_cache
+
+    def init_cache(self, batch: int, max_len: int):
+        cache = super().init_cache(batch, max_len)
+        # the mLSTM stabilizer starts at -1e30, as the chunked path's
+        cache["groups"]["m"]["m"].fill_(xlstm.M_INIT)
+        return cache
+
+    def cache_desc(self, batch: int, max_len: int):
+        cfg = self.cfg
+        xc = cfg.xlstm
+        group = {
+            "m": _stack_specs(xlstm.mlstm_cache_desc(cfg, batch), xc.m_per_group),
+            "s": _stack_specs(xlstm.slstm_cache_desc(cfg, batch), xc.s_per_group),
+        }
+        return {"pos": TensorSpec((), torch.int32), "groups": _stack_specs(group, self._gcount())}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-style hybrid: Mamba2 backbone + shared attention block
+# ---------------------------------------------------------------------------
+
+
+class HybridLM(BaseLM):
+    """`every` Mamba2 layers followed by one *shared* GQA attention block
+    (weights reused at every application, a cache per application), its
+    input fused with the original embedding (concat + projection),
+    zamba-style. The Mamba layers left over after the last group form a
+    tail (`mamba_tail`)."""
+
+    def _layout(self) -> tuple[int, int, int]:
+        cfg = self.cfg
+        k = cfg.hybrid.every
+        n_groups = cfg.n_layers // k
+        return n_groups, k, cfg.n_layers - n_groups * k
+
+    def desc(self):
+        cfg = self.cfg
+        n_groups, k, tail = self._layout()
+        mamba = ssm.desc_mamba(cfg)
+        out = self._embed_desc()
+        out["mamba_groups"] = nn.stack_layers([nn.stack_layers([mamba] * k)] * n_groups)
+        if tail:
+            out["mamba_tail"] = nn.stack_layers([mamba] * tail)
+        out["shared_attn"] = blocks.desc_attn(cfg)
+        out["shared_mlp"] = blocks.desc_mlp(cfg)
+        out["fuse"] = P((2 * cfg.d_model, cfg.d_model), ("embed", "embed"))
+        return out
+
+    def _mamba(self, p, x, cache=None):
+        return x + ssm.apply_mamba(p, x, self.cfg, cache=cache)[0]
+
+    def _mamba_stack(self, stacked, n: int, x, caches):
+        # training: each Mamba layer's activations are recomputed in the
+        # backward (the reference's jax.checkpoint of the scanned layer)
+        remat = caches is None and self.cfg.remat and torch.is_grad_enabled()
+        for i, p in enumerate(nn.unstack(stacked, n)):
+            if remat:
+                x = checkpoint(self._mamba, p, x, use_reentrant=False)
+            else:
+                x = self._mamba(p, x, None if caches is None else nn.layer(caches, i))
+        return x
+
+    def forward(self, params, batch, cache=None):
+        cfg = self.cfg
+        n_groups, k, tail = self._layout()
+        x = self._embed(params, batch)
+        emb0 = x
+        l = x.shape[1]
+        pos0 = cache["pos"] if cache is not None else 0
+        positions = pos0 + torch.arange(l, device=x.device)[None, :]
+        for gi, gp in enumerate(nn.unstack(params["mamba_groups"], n_groups)):
+            gc = None if cache is None else nn.layer(cache["mamba_groups"], gi)
+            x = self._mamba_stack(gp, k, x, gc)
+            # shared attention block on [x ; emb0]
+            fused = dense(torch.cat([x, emb0], dim=-1), params["fuse"])
+            ac = None if cache is None else dict(nn.layer(cache["attn"], gi), len=pos0)
+            a, _ = blocks.apply_attn(params["shared_attn"], fused, positions, cfg,
+                                     cache=ac, window=cfg.attn_window)
+            x = x + a
+            x = x + blocks.apply_mlp(params["shared_mlp"], x, cfg)
+        if tail:
+            x = self._mamba_stack(params["mamba_tail"], tail, x,
+                                  None if cache is None else cache["mamba_tail"])
+        # the blocks wrote their states and K/V rows into the cache in place
+        new_cache = None if cache is None else dict(cache, pos=pos0 + l)
+        return self._logits(params, x), new_cache
+
+    def cache_desc(self, batch: int, max_len: int):
+        cfg = self.cfg
+        n_groups, k, tail = self._layout()
+        mc = ssm.mamba_cache_desc(cfg, batch)
+        out = {
+            "pos": TensorSpec((), torch.int32),
+            "mamba_groups": _stack_specs(mc, n_groups, k),
+            "attn": _stack_specs(blocks.attn_cache_desc(cfg, batch, max_len), n_groups),
+        }
+        if tail:
+            out["mamba_tail"] = _stack_specs(mc, tail)
+        return out
+
+
 def build_model(cfg: ModelConfig, device=None) -> BaseLM:
     """The model for `cfg` on `device` (default the GPU): the decoder-only
-    families (dense, MoE, MLA) build; the others raise NotImplementedError."""
-    kind = ("an encoder-decoder" if cfg.encdec else "xLSTM" if cfg.xlstm is not None
-            else "a hybrid" if cfg.hybrid is not None else None)
-    if kind is not None:
+    families (dense, MoE, MLA), xLSTM and the Zamba2-style hybrid build;
+    an encoder-decoder config raises NotImplementedError."""
+    if cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} model is not ported yet (ROADMAP queue A item 12)"
+            f"{cfg.name}: an encoder-decoder model is not ported yet (ROADMAP queue A item 12)"
         )
+    if cfg.xlstm is not None:
+        return XLSTMLM(cfg, device)
+    if cfg.hybrid is not None:
+        return HybridLM(cfg, device)
     return TransformerLM(cfg, device)

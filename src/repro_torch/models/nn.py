@@ -256,6 +256,23 @@ def attention(
     return torch.cat(outs, dim=1).reshape(b, lq, hq, v.shape[-1])
 
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                prev: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv of x (B, L, C) with kernel w (K, C) and bias
+    b (C,), in the dtype of x, then silu in float32 (the Mamba2 and mLSTM
+    input convs). The K-1 steps before x are `prev` (B, K-1, C), a decode
+    cache, or zeros. Returns (out, the last K-1 input steps: the next
+    call's `prev`)."""
+    k, l = w.shape[0], x.shape[1]
+    if prev is not None:
+        ext = torch.cat([prev.to(x.dtype), x], dim=1)
+    else:
+        ext = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    wins = torch.stack([ext[:, i:i + l, :] for i in range(k)], dim=2)  # (B, L, K, C)
+    out = torch.einsum("blkc,kc->blc", wins, w.to(x.dtype)) + b.to(x.dtype)
+    return torch.nn.functional.silu(out.to(torch.float32)).to(x.dtype), ext[:, -(k - 1):, :]
+
+
 def swiglu(x, w_gate, w_up, w_down):
     g = dense(x, w_gate)
     u = dense(x, w_up)

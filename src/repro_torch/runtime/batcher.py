@@ -18,6 +18,9 @@ Port of `repro.runtime.batcher`. Two cache layouts behind one scheduler:
 
 * **Legacy contiguous** (`paged=False`): the fixed `slots x max_len`
   cache with a shared scalar clock; new requests join at clock zero only.
+  Every family serves on it (the recurrent ones, xLSTM and the hybrid,
+  have no paged cache): a batch-1 prefill's cache is spliced into the
+  slot leaf by leaf (`splice_rows`).
 
 The arenas live on the model's device. An evicted page stack is sliced
 out of the arena there, ``(n_layers, page_tokens, n_kv_heads * head_dim)``,
@@ -320,19 +323,7 @@ class ContinuousBatcher:
         if not self.live.any() and int(self.cache["pos"]) > 0:
             self.cache = self.model.init_cache(self.slots, self.max_len)  # reset
         slot = free[0]
-        # copy slot 0 of every stack of the sub-cache (`blocks`, an MoE
-        # config's `dense_blocks`; K/V, or MLA's latent `ckv`/`krope`) into
-        # our slot, along the first axis whose size is 1 in the sub-cache and
-        # `slots` in the main cache
-        for stack, tree in sub_cache.items():
-            if stack == "pos":
-                continue
-            for key, sub in tree.items():
-                main = self.cache[stack][key]
-                for ax in range(sub.ndim):
-                    if sub.shape[ax] == 1 and main.shape[ax] == self.slots:
-                        main.narrow(ax, slot, 1).copy_(sub)
-                        break
+        splice_rows(self.cache, sub_cache, slot, self.slots)
         self.cache["pos"] = torch.maximum(self.cache["pos"], sub_cache["pos"])  # shared clock
         self.tokens[slot, 0] = nxt
         self.live[slot] = True
@@ -439,6 +430,23 @@ class ContinuousBatcher:
             self.step()
             it += 1
         return reqs
+
+
+def splice_rows(main, sub, slot: int, slots: int) -> None:
+    """Copy every leaf of the batch-1 cache tree `sub` into row `slot` of
+    the `slots`-row tree `main` (the same keys, nested to any depth), in
+    place, along the first axis whose size is 1 in `sub` and `slots` in
+    `main` (the reference's rule: axis 1 of a layer stack, axis 2 of the
+    hybrid's (groups, layers, B, ...) and xLSTM's (groups, blocks, B, ...)
+    stacks). 0-d leaves, the clock, have no such axis and are left alone."""
+    if isinstance(sub, dict):
+        for key, s in sub.items():
+            splice_rows(main[key], s, slot, slots)
+        return
+    for ax in range(sub.ndim):
+        if sub.shape[ax] == 1 and main.shape[ax] == slots:
+            main.narrow(ax, slot, 1).copy_(sub)
+            return
 
 
 def _leaves(tree):

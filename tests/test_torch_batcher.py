@@ -303,6 +303,7 @@ def _drive(b, reqs):
 
 
 LLAMA4, DEEPSEEK = "llama4-scout-17b-a16e", "deepseek-v2-236b"
+ZAMBA2, XLSTM = "zamba2-1.2b", "xlstm-1.3b"
 SCENARIOS = {
     "paged": dict(kw=dict(slots=4, max_len=32, page_tokens=8), max_new=6),
     "legacy": dict(kw=dict(slots=4, max_len=32, paged=False), max_new=6),
@@ -322,6 +323,14 @@ SCENARIOS = {
     # 4 requests on 2 slots, admitted as the shared clock allows
     "mla-legacy-waves": dict(model=dict(arch=DEEPSEEK, n_layers=3), kw=dict(
         slots=2, max_len=32), max_new=6),
+    # the recurrent families (no paged cache) at their reduced depth on the
+    # legacy cache, 3 requests on 2 slots: the hybrid's (groups, layers, B,
+    # ...) Mamba stacks and per-group K/V, and xLSTM's nested groups/{m,s}
+    # states, spliced leaf by leaf
+    "hybrid-legacy": dict(model=dict(arch=ZAMBA2, n_layers=5), kw=dict(
+        slots=2, max_len=32), max_new=6, requests=3),
+    "xlstm-legacy": dict(model=dict(arch=XLSTM, n_layers=4), kw=dict(
+        slots=2, max_len=32), max_new=6, requests=3),
 }
 
 
@@ -338,7 +347,7 @@ def test_token_streams_and_accounting_match_reference(scenario):
         pkw["policies"], rkw["policies"] = Policy.raw(), r_policy.Policy.raw()
     elif sc.get("policies") == "serving":
         pkw["policies"], rkw["policies"] = serving_policies(8.0), r_policy.serving_policies(8.0)
-    prompts = _prompts(cfg, 6, 4, 12)
+    prompts = _prompts(cfg, 6, sc.get("requests", 4), 12)
     rb = rbatch.ContinuousBatcher(rmodel, rparams, eos_id=-1, **rkw)
     pb = _MarginBatcher(model, params, eos_id=-1, **pkw)
     rreqs = [rbatch.Request(rid=i, prompt=p, max_new=sc["max_new"]) for i, p in enumerate(prompts)]
@@ -369,6 +378,30 @@ def test_token_streams_and_accounting_match_reference(scenario):
         assert {"k", "v", "dk", "dv"} == {n.split("/")[-1].rstrip("0123456789") for n in names}
     if scenario == "mla-legacy-waves":  # both stacks of latents were spliced
         assert not pb.paged and set(pb.cache["dense_blocks"]) == {"ckv", "krope"}
+    if scenario.endswith("-legacy"):
+        assert not pb.paged and not rb.paged
+
+
+def test_splice_rows_takes_the_reference_axis():
+    """Every leaf at any depth, along the first axis of size 1 in the
+    batch-1 tree and `slots` in the main one: the batch axis of a
+    (groups, blocks, B, ...) stack, and with one slot a size-1 stack axis
+    (a whole copy, as the reference's rule gives); the 0-d clock stays."""
+    from repro_torch.runtime.batcher import splice_rows
+
+    def tree(b, fill):
+        return {"pos": torch.tensor(7), "groups": {
+            "m": {"C": torch.full((2, 1, b, 3, 4, 4), fill)},
+            "s": {"h": torch.full((2, 1, b, 3, 4), fill)}}}
+
+    main, sub = tree(3, 0.0), tree(1, 1.0)
+    splice_rows(main, sub, 2, 3)
+    for leaf in (main["groups"]["m"]["C"], main["groups"]["s"]["h"]):
+        assert bool((leaf[:, :, 2] == 1).all()) and bool((leaf[:, :, :2] == 0).all())
+    assert int(main["pos"]) == 7
+    one = tree(1, 0.0)
+    splice_rows(one, sub, 0, 1)  # axis 1 (blocks) has size 1 in both
+    assert bool((one["groups"]["m"]["C"] == 1).all())
 
 
 @pytest.mark.parametrize("threshold", [1, 24, 512])
@@ -410,6 +443,19 @@ def test_serve_static_on_cpu():
                       "--gen", "5"])
     assert out["tokens"].shape == (2, 5) and out["tokens"].dtype == np.int32
     assert out["prefill_s"] > 0 and out["decode_s"] > 0
+
+
+@pytest.mark.parametrize("arch", [ZAMBA2, XLSTM])
+def test_serve_recurrent_families_on_cpu(arch):
+    """`launch.serve --smoke` serves the hybrid and xLSTM on the contiguous
+    cache; `--continuous` refuses them (no paged cache), as it refuses MLA
+    and as the reference does."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    out = serve.main(argv + ["--batch", "2", "--prompt-len", "20", "--gen", "5"])
+    assert out["tokens"].shape == (2, 5) and out["tokens"].dtype == np.int32
+    assert 0 <= out["tokens"].min() and out["tokens"].max() < 512
+    with pytest.raises(ValueError, match="paged"):
+        serve.main(argv + ["--continuous"])
 
 
 @pytest.mark.parametrize("arena_pages,evictions", [(136, 0), (84, 9)])

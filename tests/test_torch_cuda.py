@@ -995,3 +995,50 @@ def test_moe_dense_layers_evict_on_card_invisibly(cuda_device):
     assert calm.stats["evictions"] == 0
     assert tight.stats["evictions"] > 0 and tight.stats["restores"] > 0
     assert [r.out for r in calm_reqs] == [r.out for r in tight_reqs]
+
+
+# -- the recurrent families on the card -------------------------------------
+
+RECURRENT = ["zamba2-1.2b", "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_logits_on_card_equal_cpu(cuda_device, name):
+    """float32 logits and loss of the reduced hybrid (SSD chunks, the shared
+    attention) and xLSTM (chunked mLSTM, sLSTM loop) without a cache on
+    the card against the CPU, TF32 off: rtol 1e-4, atol 1e-5 * max|logit|;
+    loss to rtol 1e-5."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, cparams, card, params = _reduced_pair(name, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    want, _ = cpu.forward(cparams, batch)
+    got, _ = card.forward(params, {k: v.to(cuda_device) for k, v in batch.items()})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    loss = card.loss(params, {k: v.to(cuda_device) for k, v in batch.items()})[0]
+    np.testing.assert_allclose(float(loss), float(cpu.loss(cparams, batch)[0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_greedy_decode_on_card_tracks_cpu(cuda_device, name):
+    """A 12-token prefill into the contiguous cache and 8 greedy decode
+    steps on the card and on the CPU, each fed its own greedy tokens: equal
+    token streams, logits within 1e-3 * max|logit| (the hybrid's K/V and
+    xLSTM's conv state are bfloat16 in the cache)."""
+    cfg, cpu, cparams, card, params = _reduced_pair(name, cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12)).astype(np.int32))
+    ccache, gcache = cpu.init_cache(2, 24), card.init_cache(2, 24)
+    cfeed, gfeed = prompt, prompt.to(cuda_device)
+    ctoks, gtoks = [], []
+    for _ in range(9):
+        want, ccache = cpu.forward(cparams, {"tokens": cfeed}, ccache)
+        got, gcache = card.forward(params, {"tokens": gfeed}, gcache)
+        np.testing.assert_allclose(got[:, -1].cpu().numpy(), want[:, -1].numpy(), rtol=0,
+                                   atol=1e-3 * float(want[:, -1].abs().max()))
+        cfeed = torch.argmax(want[:, -1], dim=-1)[:, None].to(torch.int32)
+        gfeed = torch.argmax(got[:, -1], dim=-1)[:, None].to(torch.int32)
+        ctoks.append(cfeed)
+        gtoks.append(gfeed.cpu())
+    assert torch.equal(torch.cat(gtoks, 1), torch.cat(ctoks, 1))
+    assert int(gcache["pos"]) == int(ccache["pos"]) == 20

@@ -38,7 +38,7 @@ from repro_torch.runtime import steps
 
 DENSE = ["smollm-360m", "starcoder2-7b", "minitron-4b"]  # swiglu, gelu, relu2
 BUILDABLE = {"smollm-360m", "phi4-mini-3.8b", "starcoder2-7b", "minitron-4b", "internvl2-76b",
-             "llama4-scout-17b-a16e", "deepseek-v2-236b"}
+             "llama4-scout-17b-a16e", "deepseek-v2-236b", "zamba2-1.2b", "xlstm-1.3b"}
 B, L = 2, 40
 F32_RTOL, F32_ATOL = 1e-4, 1e-5
 BF16_ATOL = 1.5e-2
@@ -100,9 +100,9 @@ def _desc_leaves(tree, is_leaf):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_desc_matches_reference_or_raises(name):
-    """The decoder-only families (dense, MoE, MLA) declare the reference's
-    parameter tree (keys, shapes, axes, inits); the others raise, naming
-    the ROADMAP item."""
+    """The decoder-only families (dense, MoE, MLA), xLSTM and the hybrid
+    declare the reference's parameter tree (keys, shapes, axes, inits);
+    the encoder-decoder raises, naming the ROADMAP item."""
     cfg = reduced_for_smoke(get_config(name))
     if name not in BUILDABLE:
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
