@@ -114,7 +114,23 @@ phase that goes wrong:
    same weights on the CPU and the card (losses within
    `TRAIN_CARD_LOSS_RTOL`) and compresses the same gradients on both
    (bit for bit);
-13. one JSON line with every kernel's launches on its path, error, times,
+13. the encoder-decoder and the train step of the other families:
+   `[serve-encdec]` serves seamless-m4t-large-v2 at full width and depth
+   (24 + 24 layers, 2.04 B float32 parameters) through
+   `launch.serve.run_static` with 1024 frames (the encoder run once, by
+   the prefill) and holds its cached decode of 8 tokens to the parallel
+   forward within 5e-2 * max|logit|; `[train-hybrid]` trains zamba2-1.2b
+   at full width and depth through `launch.train.main` with gradient
+   compression (10 steps of 8 x 256 tokens, one step's every leaf held to
+   its contract), `[train-xlstm]` xlstm-1.3b without (5 steps of 4 x 256),
+   `[train-encdec]` seamless-m4t-large-v2 through `make_train_step` with
+   gradient compression (5 steps of 4 x 256 tokens and 1024 frames); the
+   losses must fall; `[train-zoo-cpu-vs-card]` holds the loss and every
+   gradient of the reduced llama4-scout, deepseek-v2, zamba2-1.2b,
+   xlstm-1.3b and seamless-m4t-large-v2 on the card to the CPU's and
+   prints whether the MoE gradients agree bit for bit across two card
+   runs;
+14. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -134,8 +150,8 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 `--recurrent` only the zamba2-1.2b and xlstm-1.3b ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
-and `--train-profile` traces three full-width train steps
-(`train_profile`).
+`--zoo` only the phases of 13, and `--train-profile` traces three
+full-width train steps (`train_profile`).
 """
 
 from __future__ import annotations
@@ -1192,7 +1208,12 @@ def decode_profile(torch, np, dev, arch: str = SERVE_ARCH[1]) -> dict:
     toks = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab, (4, 64)),
                            dtype=torch.int32, device=dev)
     cache = model.init_cache(4, 64 + 16)
-    logits, cache = make_prefill_step(model)(params, {"tokens": toks}, cache)
+    batch = {"tokens": toks}
+    if cfg.encdec:  # the audio stub's frames, encoded by the prefill
+        batch["frames"] = torch.randn((4, cfg.frontend_len, cfg.d_model),
+                                      generator=torch.Generator(device=dev).manual_seed(1),
+                                      device=dev)
+    logits, cache = make_prefill_step(model)(params, batch, cache)
     nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
     decode = make_decode_step(model)
     for _ in range(3):
@@ -1625,8 +1646,8 @@ class TrainProbe:
             self._calls += 1
             if self._calls != self.check_step:
                 return real_compress(cfg, grads, state)
-            g_in = [g.clone() for g in _leaves(grads)]
-            r_in = [r.clone() for r in _leaves(state["residual"])]
+            # compress writes neither: its outputs are fresh tensors
+            g_in, r_in = _leaves(grads), _leaves(state["residual"])
             out = real_compress(cfg, grads, state)
             self.checked = check_compress_contract(torch, cfg, g_in, r_in, _leaves(out[0]),
                                                    _leaves(out[1]["residual"]))
@@ -1667,21 +1688,25 @@ def check_compress_contract(torch, cfg, g_in, r_in, gq, resid) -> dict:
     k * delta bit for bit, the residual the fused multiply-add g' - k*delta
     (float64, rounded once) bit for bit, and |k*delta - g'| <= eb up to one
     float32 rounding of each of the division and the product,
-    eb + 2^-24 (|g'| + |k*delta|). Returns the worst error over eb."""
+    eb + 2^-24 (|g'| + |k*delta|). The float64 checks take a leaf 2^24
+    values at a time, so they fit beside a full-width model's training
+    state. Returns the worst error over eb."""
     worst, values = 0.0, 0
     for g, r, q, res in zip(g_in, r_in, gq, resid):
         gp = g.float() + r
         vr = torch.clamp(gp.max() - gp.min(), min=1e-12)
         eb = vr * cfg.eb_rel
         delta = 2.0 * eb
-        k = torch.round(gp / delta)
-        check(torch.equal(q, k * delta), "train: a dequantized gradient is not k * delta")
-        fma = (gp.double() - k.double() * delta.double()).float()
-        check(torch.equal(res, fma), "train: a residual is not the fused g' - k * delta")
-        err = (q.double() - gp.double()).abs()
-        bound = eb.double() + 2.0**-24 * (gp.double().abs() + q.double().abs())
-        check(bool((err <= bound).all()), "train: a dequantized gradient is off by more than eb")
-        worst = max(worst, float((err / eb.double()).max()))
+        for gs, qs, rs in zip(*(t.reshape(-1).split(1 << 24) for t in (gp, q, res))):
+            k = torch.round(gs / delta)
+            check(torch.equal(qs, k * delta), "train: a dequantized gradient is not k * delta")
+            fma = (gs.double() - k.double() * delta.double()).float()
+            check(torch.equal(rs, fma), "train: a residual is not the fused g' - k * delta")
+            err = (qs.double() - gs.double()).abs()
+            bound = eb.double() + 2.0**-24 * (gs.double().abs() + qs.double().abs())
+            check(bool((err <= bound).all()),
+                  "train: a dequantized gradient is off by more than eb")
+            worst = max(worst, float((err / eb.double()).max()))
         values += g.numel()
     return {"leaves": len(gq), "values": values, "max_err_over_eb": worst}
 
@@ -1907,6 +1932,262 @@ def train_only(torch, np, dev) -> dict:
     """The training phases alone."""
     return {"train": phase_train(torch, np, dev), "train_ckpt": phase_train_ckpt(torch, np, dev),
             "train_cpu_vs_card": phase_train_cpu_vs_card(torch, np, dev)}
+
+
+#: the encoder-decoder and the train step of the families beyond the dense
+#: decoders. seamless-m4t-large-v2 at full width and depth (24 encoder + 24
+#: decoder layers, d_model 1024, vocab 256206; 2.04 B float32 parameters):
+#: served with `[serve-static]`'s shapes and 1024 frames, its cached decode
+#: held to the parallel forward over `ENCDEC_CHECK_TOKENS` tokens within
+#: 5e-2 * max|logit| (tests/test_arch_smoke.py's bound: bfloat16 K/V in the
+#: cache against the float32 parallel path); trained through
+#: `make_train_step` with gradient compression (the launcher feeds no
+#: frames). zamba2-1.2b and xlstm-1.3b train at full width and depth through
+#: `launch.train.main`; llama4-scout and deepseek-v2 only at reduced size (a
+#: full-width layer's params, gradients and Adam moments pass one card).
+ENCDEC_ARCH, ENCDEC_CHECK_TOKENS = "seamless-m4t-large-v2", 8
+TRAIN_HYBRID_RUN = ["--arch", HYBRID_ARCH, "--steps", "10", "--seq", "256", "--batch", "8",
+                    "--compress-grads", "--log-every", "5"]
+TRAIN_XLSTM_RUN = ["--arch", XLSTM_ARCH, "--steps", "5", "--seq", "256", "--batch", "4",
+                   "--log-every", "1"]
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_BATCH = 5, 256, 4
+ZOO_ARCHS = (MOE_ARCH, MLA_ARCH, HYBRID_ARCH, XLSTM_ARCH, ENCDEC_ARCH)
+#: [train-zoo-cpu-vs-card]: the card's gradients within this share of
+#: max|g| of the CPU's (plus rtol 1e-4). The card's float32 matmuls sum in
+#: other orders than the CPU's, and the sLSTM's 64-step recurrence carries
+#: the differences back: the reduced xlstm-1.3b's sLSTM input weights lie
+#: up to 2.1e-5 of max|g| apart, the other families within 1.2e-5
+#: (NVIDIA H100 80GB HBM3, 700.00 W); the CPU tests' float32 rule against
+#: the reference is 1e-5.
+ZOO_CARD_GRAD_ATOL = 5e-5
+
+
+def phase_serve_encdec(torch, np, dev) -> dict:
+    """seamless-m4t-large-v2 at full width and depth through
+    `serve.run_static` (batch 4, prompt 64, gen 32, 1024 frames drawn after
+    the prompts): the tokens in range, the encoder run once (by the
+    prefill; the decode steps read the cached memory); then a cached decode
+    of `ENCDEC_CHECK_TOKENS` tokens, frames with the first, against the
+    parallel forward of the same tokens within 5e-2 * max|logit|."""
+    cfg, model, params = full_width_model(torch, dev, ENCDEC_ARCH)
+    encodes = []
+    encode = model.encode
+
+    def counted(p, frames, remat=None):
+        encodes.append(tuple(frames.shape))
+        return encode(p, frames, remat)
+
+    model.encode = counted
+    static = static_serve(torch, ENCDEC_ARCH, cfg, model, params)
+    check(encodes == [(4, cfg.frontend_len, cfg.d_model)],
+          f"serve-encdec: the static run encoded {encodes}, not once in the prefill")
+    rng = np.random.default_rng(1)
+    n = ENCDEC_CHECK_TOKENS
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (4, n)), dtype=torch.int32, device=dev)
+    frames = torch.as_tensor(rng.standard_normal((4, cfg.frontend_len, cfg.d_model)),
+                             dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": toks, "frames": frames})
+        cache = model.init_cache(4, n)
+        outs = []
+        for t in range(n):
+            b = {"tokens": toks[:, t:t + 1]}
+            if t == 0:
+                b["frames"] = frames
+            lg, cache = model.forward(params, b, cache)
+            outs.append(lg)
+    model.encode = encode
+    rel = float((torch.cat(outs, dim=1) - full).abs().max()) / float(full.abs().max())
+    check(math.isfinite(rel) and rel < 5e-2,
+          f"serve-encdec: cached decode vs parallel forward {rel:.3g} of max|logit|")
+    check(int(cache["pos"]) == n and len(encodes) == 3,
+          f"serve-encdec: pos {int(cache['pos'])}, encodes {len(encodes)}")
+    # the cross K/V each decode step recomputes over every frame in every
+    # decoder layer (as the reference does): 2 projections of 2 * d * d a frame
+    cross_flop = 2 * 2 * 4 * cfg.frontend_len * cfg.d_model * cfg.n_kv_heads * cfg.dh * cfg.n_layers
+    report = dict(arch=cfg.name, enc_layers=cfg.n_enc_layers, dec_layers=cfg.n_layers,
+                  frames=cfg.frontend_len, static=static, encoder_runs_in_static=1,
+                  decode_vs_parallel_max_err_over_max_logit=rel,
+                  cross_kv_gflop_per_decode_step=cross_flop / 1e9)
+    log("serve-encdec", json.dumps(report))
+    return report
+
+
+def _losses_fall(losses) -> bool:
+    k = max(1, len(losses) // 3)
+    return (all(math.isfinite(v) for v in losses)
+            and statistics.mean(losses[-k:]) < statistics.mean(losses[:k]))
+
+
+def train_report(run: dict, probe, losses, peak_gib, n_params) -> dict:
+    """A training phase's numbers: `run` gives arch, seq and batch, `probe`
+    (a `TrainProbe`) the step times, metrics and checked contract."""
+    step_ms = probe.step_ms
+    med = statistics.median(step_ms[1:])
+    return dict(arch=run["arch"], params=n_params, steps=len(losses), seq=run["seq"],
+                batch=run["batch"], step_ms_median=med, first_step_ms=step_ms[0], step_ms=step_ms,
+                tokens_per_s=run["batch"] * run["seq"] / (med / 1e3), peak_gib=peak_gib,
+                losses=losses, compress_contract=probe.checked,
+                wire_bits_per_value=probe.metrics[-1].get("wire_bits_per_value"))
+
+
+def phase_train_launcher(torch, np, dev, tag: str, run: list) -> dict:
+    """`launch.train.main(run)` at full width and depth: the losses finite
+    and falling, step ms, tokens/s, peak memory; with --compress-grads every
+    leaf of the 5th step's compression held to its contract."""
+    from repro_torch.launch import train
+
+    args = run + ["--device", str(dev)]
+    targs = train.parse_args(args)
+    torch.cuda.reset_peak_memory_stats()
+    with TrainProbe(torch, check_step=TRAIN_CHECKED_STEP if targs.compress_grads else None) as probe:
+        out = train.main(args)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = out["losses"]
+    check(len(losses) == targs.steps and _losses_fall(losses), f"{tag}: losses {losses}")
+    check(not targs.compress_grads or probe.checked is not None,
+          f"{tag}: the compression contract was not checked")
+    n_params = sum(p.numel() for p in _leaves(probe.state[0]))
+    report = train_report(vars(targs), probe, losses, peak, n_params)
+    log(tag, json.dumps(report))
+    del out, probe
+    return report
+
+
+def phase_train_encdec(torch, np, dev) -> dict:
+    """seamless-m4t-large-v2 at full width and depth through
+    `make_train_step` with `GradCompressConfig()` (the launcher's AdamW
+    rule), batches of 4 x 256 tokens and 1024 frames: the losses finite and
+    falling, every leaf of the 3rd step's compression held to its
+    contract, step ms, tokens/s, peak memory."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = full_width_model(torch, dev, ENCDEC_ARCH)
+    n = ENCDEC_TRAIN_STEPS
+    gc = GradCompressConfig()
+    state = init_opt_state(params, gc)
+    step = make_train_step(model, AdamWConfig(lr=3e-4, total_steps=n,
+                                              warmup_steps=min(20, n // 5)), gc)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=ENCDEC_TRAIN_SEQ, global_batch=ENCDEC_TRAIN_BATCH)
+    losses = []
+    with TrainProbe(torch, check_step=3) as probe:
+        for s in range(n):
+            batch = synthetic_batch(dcfg, s)
+            batch["frames"] = np.random.default_rng(s).standard_normal(
+                (dcfg.global_batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            probe.step_ms.append((time.perf_counter() - t0) * 1e3)
+            probe.metrics.append({k: float(v) for k, v in m.items()})
+            losses.append(probe.metrics[-1]["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(_losses_fall(losses), f"train-encdec: losses {losses}")
+    check(probe.checked is not None, "train-encdec: the compression contract was not checked")
+    n_params = sum(p.numel() for p in _leaves(params))
+    report = train_report(dict(arch=cfg.name, seq=ENCDEC_TRAIN_SEQ, batch=ENCDEC_TRAIN_BATCH),
+                          probe, losses, peak, n_params)
+    report["frames"] = cfg.frontend_len
+    log("train-encdec", json.dumps(report))
+    return report
+
+
+def _zoo_grads(torch, model, params, batch):
+    """The loss and the gradient of every leaf, as `make_train_step` takes
+    them."""
+    from repro_torch.core import pytree as pt
+
+    leaves, treedef = pt.flatten_with_path(params)
+    tracked = [p.detach().requires_grad_(True) for _, p in leaves]
+    loss, _ = model.loss(pt.unflatten(treedef, tracked), batch)
+    grads = torch.autograd.grad(loss, tracked)
+    return loss.detach(), [(pt.leaf_name(path), g) for (path, _), g in zip(leaves, grads)]
+
+
+def phase_train_zoo_cpu_vs_card(torch, np, dev) -> dict:
+    """The reduced llama4-scout, deepseek-v2, zamba2-1.2b, xlstm-1.3b and
+    seamless-m4t-large-v2 at float32 (TF32 off), the same weights on the
+    CPU and the card: the loss within rtol 1e-5 and every gradient leaf
+    within rtol 1e-4 and atol `ZOO_CARD_GRAD_ATOL` * max|g| of the CPU's
+    (the top-1 router's gradient, zero but for rounding, within 1e-6 of
+    the model's largest in both); then one `make_train_step` with gradient compression on each
+    device, losses within rtol 1e-5. The MoE gradients are computed twice
+    on the card and whether they agree bit for bit is printed: their
+    backward scatters with atomics, so a rerun may not."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    out = {}
+    for name in ZOO_ARCHS:
+        cfg = reduced_for_smoke(get_config(name)).scaled(dtype="float32")
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+        batch = synthetic_batch(dcfg, 0)
+        if cfg.encdec:
+            batch["frames"] = np.random.default_rng(0).standard_normal(
+                (4, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        init = mnn.init_tree(build_model(cfg, device="cpu").desc(),
+                             torch.Generator().manual_seed(0), device="cpu")
+        runs = []  # the CPU's, then the card's
+        for where in ("cpu", dev):
+            model = build_model(cfg, device=where)
+            params = mnn.tree_map(lambda a: a.clone().to(where), init)
+            b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+            runs.append((model, params, b, _zoo_grads(torch, model, params, b)))
+        (_, _, _, (wl, want)), (gmodel, gparams, gb, (gl, got)) = runs
+        check(abs(float(gl) / float(wl) - 1) <= 1e-5, f"{name}: card loss {gl} vs CPU {wl}")
+        top = max(float(g.abs().max()) for _, g in want)
+        zero = {"blocks/mlp/router"} if cfg.moe is not None and cfg.moe.top_k == 1 else set()
+        worst = 0.0
+        for (n, g), (_, w) in zip(got, want):
+            g = g.cpu()
+            if n in zero:
+                check(max(float(g.abs().max()), float(w.abs().max())) <= 1e-6 * top,
+                      f"{name}: {n}'s gradient is not zero but for rounding")
+                continue
+            scale = float(w.abs().max())
+            check(bool(((g - w).abs() <= 1e-4 * w.abs() + ZOO_CARD_GRAD_ATOL * scale).all()),
+                  f"{name}: card gradient {n} differs from the CPU's")
+            worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+        res = dict(loss_rel_err=abs(float(gl) / float(wl) - 1), worst_grad_err_over_max=worst)
+        if cfg.moe is not None:
+            _, again = _zoo_grads(torch, gmodel, gparams, gb)
+            res["moe_rerun_grads_bit_for_bit"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(got, again))
+        gc = GradCompressConfig(eb_rel=1e-3)
+        opt = AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5)
+        losses = []
+        for model, params, b, _ in runs:
+            _, _, m = make_train_step(model, opt, gc)(params, init_opt_state(params, gc), b)
+            losses.append(float(m["loss"]))
+        check(abs(losses[1] / losses[0] - 1) <= 1e-5, f"{name}: train step loss {losses}")
+        res["train_step_loss_cpu_card"] = losses
+        out[name] = res
+        log("train-zoo-cpu-vs-card", f"reduced {name} at float32: {json.dumps(res)}")
+        del runs, gmodel, gparams
+    return out
+
+
+def zoo_only(torch, np, dev) -> dict:
+    """The encoder-decoder's serving and the zoo's training phases alone."""
+    out = {"serve_encdec": phase_serve_encdec(torch, np, dev)}
+    free_card(torch)
+    out["train_hybrid"] = phase_train_launcher(torch, np, dev, "train-hybrid", TRAIN_HYBRID_RUN)
+    free_card(torch)
+    out["train_xlstm"] = phase_train_launcher(torch, np, dev, "train-xlstm", TRAIN_XLSTM_RUN)
+    free_card(torch)
+    out["train_encdec"] = phase_train_encdec(torch, np, dev)
+    free_card(torch)
+    out["train_zoo_cpu_vs_card"] = phase_train_zoo_cpu_vs_card(torch, np, dev)
+    return out
 
 
 def train_profile(torch, np, dev) -> dict:
@@ -2662,6 +2943,9 @@ def main() -> int:
                         help="only run the zamba2-1.2b and xlstm-1.3b phases (recurrent_only)")
     parser.add_argument("--train", action="store_true",
                         help="only run the training phases (train_only)")
+    parser.add_argument("--zoo", action="store_true",
+                        help="only run the encoder-decoder's serving and the zoo's training "
+                        "phases (zoo_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -2701,6 +2985,7 @@ def main() -> int:
                           (args.moe_mla, moe_mla_only),
                           (args.recurrent, recurrent_only),
                           (args.train, train_only),
+                          (args.zoo, zoo_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -2750,6 +3035,8 @@ def main() -> int:
     phase_train(torch, np, dev)
     phase_train_ckpt(torch, np, dev)
     phase_train_cpu_vs_card(torch, np, dev)
+    free_card(torch)
+    zoo_only(torch, np, dev)
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():

@@ -162,7 +162,9 @@ def main(argv=None) -> dict:
 
 
 def run_static(args, cfg, model, params) -> dict:
-    """A batch of `args.batch` prompts of `args.prompt_len` tokens through
+    """A batch of `args.batch` prompts of `args.prompt_len` tokens (and,
+    drawn after them from the same generator as in the reference, the
+    vision stub's patch embeddings or the encoder-decoder's frames) through
     one prefill, then `args.gen - 1` decode steps on the contiguous cache:
     the tokens, the prefill's seconds and the decode loop's seconds, each
     timed between synchronizes."""
@@ -176,6 +178,10 @@ def run_static(args, cfg, model, params) -> dict:
     batch = {"tokens": prompts}
     if cfg.frontend == "vision":
         batch["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, cfg.frontend_len, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    if cfg.encdec:  # the audio stub's frame embeddings, encoded once by the prefill
+        batch["frames"] = torch.as_tensor(
             rng.standard_normal((b, cfg.frontend_len, cfg.d_model)), dtype=torch.float32,
             device=dev)
 

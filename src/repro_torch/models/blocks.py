@@ -53,8 +53,14 @@ def apply_attn(
     causal: bool = True,
     window: int | None = None,
     cache: dict | None = None,
+    memory: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention with an optional decode cache.
+    """Self- or cross-attention with an optional decode cache.
+
+    memory: the encoder's output (B, M, d_model), already normed, for
+    cross-attention: the queries come from the normed `x`, the keys and
+    values from `memory` as it is, with no rope, no mask and no cache (a
+    decode step recomputes them from `memory`, as the reference does).
 
     Contiguous cache: {'k': (B, M, Hkv, Dh), 'v': ..., 'len': ()} (plus
     'k_scale'/'v_scale' (B, M, Hkv) for the int8 cache), written at
@@ -72,15 +78,19 @@ def apply_attn(
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = dense(xn, p["wq"]).reshape(b, l, h, dh)
-    k = dense(xn, p["wk"]).reshape(b, l, hkv, dh)
-    v = dense(xn, p["wv"]).reshape(b, l, hkv, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    src = xn if memory is None else memory  # the encoder memory is pre-normed
+    k = dense(src, p["wk"]).reshape(b, src.shape[1], hkv, dh)
+    v = dense(src, p["wv"]).reshape(b, src.shape[1], hkv, dh)
+    if memory is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     q = shard(q, "batch", None, "heads", None)
     k = shard(k, "batch", None, "heads", None)
     v = shard(v, "batch", None, "heads", None)
     new_cache = None
-    if cache is not None and "ptab" in cache:
+    if memory is not None:
+        out = attention(q, k, v, causal=False, window=window)
+    elif cache is not None and "ptab" in cache:
         # --- paged KV pool (serving tier, DESIGN.md §9) ---
         if l != 1:
             raise ValueError(

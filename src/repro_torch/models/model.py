@@ -1,16 +1,16 @@
 """Model assembly: the decoder-only LM (dense, MoE, MLA, and the vision-stub
-VLM decoder), xLSTM and the Zamba2-style hybrid, cache-aware, declared via
-P-descriptors, in torch.
+VLM decoder), xLSTM, the Zamba2-style hybrid and the encoder-decoder
+(audio-stub frames), cache-aware, declared via P-descriptors, in torch.
 
-Port of `repro.models.model`'s `TransformerLM`, `XLSTMLM` and `HybridLM`.
-Layers are stacked on a leading axis as in the reference and run as a
-Python loop over that axis; under autograd with `cfg.remat` (the default)
-and no cache, each unit the reference scans (a transformer layer, an
-xLSTM group, a Mamba layer) runs under `torch.utils.checkpoint`, as the
-reference's `jax.checkpoint` of its scanned body, so a training step keeps
-one activation a unit. The leading dense layers of an MoE config
-(`dense_blocks`) and the hybrid's shared attention run outside it, as in
-the reference.
+Port of `repro.models.model`'s `TransformerLM`, `XLSTMLM`, `HybridLM` and
+`EncDecLM`. Layers are stacked on a leading axis as in the reference and
+run as a Python loop over that axis; under autograd with `cfg.remat` (the
+default) and no cache, each unit the reference scans (a transformer layer,
+an xLSTM group, a Mamba layer, an encoder or decoder layer) runs under
+`torch.utils.checkpoint`, as the reference's `jax.checkpoint` of its
+scanned body, so a training step keeps one activation a unit. The leading
+dense layers of an MoE config (`dense_blocks`) and the hybrid's shared
+attention run outside it, as in the reference.
 
 Public API (built by `build_model(cfg, device=...)`):
   model.desc()                          -> param descriptor tree
@@ -25,9 +25,6 @@ its caches live; params and batches are expected there too. A cache's
 tensors (K/V rows, recurrent states) are updated in place by `forward`:
 the returned cache holds the same tensors with the new values written,
 and a new position clock.
-
-The encoder-decoder model is ROADMAP queue A item 12; `build_model`
-raises for it.
 """
 
 from __future__ import annotations
@@ -395,14 +392,105 @@ class HybridLM(BaseLM):
         return out
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder (seamless-style; audio frontend stubbed as frame embeddings)
+# ---------------------------------------------------------------------------
+
+
+class EncDecLM(BaseLM):
+    """A non-causal encoder over projected frame embeddings (`frame_proj`,
+    rope on the frame positions, `enc_norm`) and a causal decoder whose
+    layers add cross-attention to the encoder's output (`memory`). The
+    cache holds `memory` beside the self-attention K/V: a forward given
+    `frames` encodes them and copies the result into the cache; one
+    without reads the cached memory. The loss is `BaseLM.loss` (no
+    vision slice: the frontend is audio)."""
+
+    def desc(self):
+        cfg = self.cfg
+        enc_layer = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
+        dec_layer = {"attn": blocks.desc_attn(cfg), "cross": blocks.desc_attn(cfg),
+                     "mlp": blocks.desc_mlp(cfg)}
+        out = self._embed_desc()
+        out["enc_blocks"] = nn.stack_layers([enc_layer] * cfg.n_enc_layers)
+        out["enc_norm"] = P((cfg.d_model,), ("norm",), "ones")
+        out["dec_blocks"] = nn.stack_layers([dec_layer] * cfg.n_layers)
+        return out
+
+    def _enc_block(self, p, x, positions):
+        a, _ = blocks.apply_attn(p["attn"], x, positions, self.cfg, causal=False)
+        x = x + a
+        return x + blocks.apply_mlp(p["mlp"], x, self.cfg)
+
+    def encode(self, params, frames, remat: bool | None = None) -> torch.Tensor:
+        """frames (B, M, d_model) -> the normed memory (B, M, d_model) in
+        the compute dtype. With `remat` (default: `cfg.remat` under
+        autograd) each layer runs under `torch.utils.checkpoint`."""
+        cfg = self.cfg
+        x = shard(dense(frames.to(_dt(cfg)), params["frame_proj"]), "batch", None, None)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        if remat is None:
+            remat = cfg.remat and torch.is_grad_enabled()
+        for p in nn.unstack(params["enc_blocks"], cfg.n_enc_layers):
+            if remat:
+                x = checkpoint(self._enc_block, p, x, positions, use_reentrant=False)
+            else:
+                x = self._enc_block(p, x, positions)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _dec_block(self, p, x, positions, memory, cache=None):
+        cfg = self.cfg
+        a, _ = blocks.apply_attn(p["attn"], x, positions, cfg, cache=cache)
+        x = x + a
+        c, _ = blocks.apply_attn(p["cross"], x, positions, cfg, memory=memory)
+        x = x + c
+        return x + blocks.apply_mlp(p["mlp"], x, cfg)
+
+    def forward(self, params, batch, cache=None):
+        cfg = self.cfg
+        # training: each layer's activations are recomputed in the backward
+        # (the reference's jax.checkpoint of the scanned layers)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        if "frames" in batch:  # (re)encode; else reuse the cached memory
+            memory = self.encode(params, batch["frames"], remat=remat)
+        elif cache is not None:
+            memory = cache["memory"]
+        else:
+            raise ValueError(f"{cfg.name}: a forward without a cache needs 'frames'")
+        x = self._embed(params, batch)
+        l = x.shape[1]
+        pos0 = cache["pos"] if cache is not None else 0
+        positions = pos0 + torch.arange(l, device=x.device)[None, :]
+        for i, p in enumerate(nn.unstack(params["dec_blocks"], cfg.n_layers)):
+            if remat:
+                x = checkpoint(self._dec_block, p, x, positions, memory, use_reentrant=False)
+            else:
+                cl = None if cache is None else dict(nn.layer(cache["blocks"], i), len=pos0)
+                x = self._dec_block(p, x, positions, memory, cl)
+        new_cache = None
+        if cache is not None:
+            # the layers wrote their K/V rows into the cache stacks in place
+            new_cache = dict(cache, pos=pos0 + l)
+            if "frames" in batch:  # frames of `cache_desc`'s enc_len steps
+                cache["memory"].copy_(memory)
+        return self._logits(params, x), new_cache
+
+    def cache_desc(self, batch: int, max_len: int, enc_len: int | None = None):
+        cfg = self.cfg
+        enc_len = enc_len or cfg.frontend_len
+        return {
+            "pos": TensorSpec((), torch.int32),
+            "memory": TensorSpec((batch, enc_len, cfg.d_model), _dt(cfg)),
+            "blocks": _stack_specs(blocks.attn_cache_desc(cfg, batch, max_len), cfg.n_layers),
+        }
+
+
 def build_model(cfg: ModelConfig, device=None) -> BaseLM:
     """The model for `cfg` on `device` (default the GPU): the decoder-only
-    families (dense, MoE, MLA), xLSTM and the Zamba2-style hybrid build;
-    an encoder-decoder config raises NotImplementedError."""
+    families (dense, MoE, MLA), xLSTM, the Zamba2-style hybrid and the
+    encoder-decoder."""
     if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder model is not ported yet (ROADMAP queue A item 12)"
-        )
+        return EncDecLM(cfg, device)
     if cfg.xlstm is not None:
         return XLSTMLM(cfg, device)
     if cfg.hybrid is not None:

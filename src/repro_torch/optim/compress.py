@@ -70,6 +70,22 @@ def init(params: Any) -> dict:
     }
 
 
+#: values a float64 slice of the residual's multiply-add holds at once
+_FMA_CHUNK = 1 << 24
+
+
+def _fma_residual(g: torch.Tensor, k: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """g - k * delta in float64 rounded once to float32 (the reference's
+    fused multiply-add), a slice at a time: whole, the float64 temporaries
+    would take 24 bytes a value of a leaf at once."""
+    out = torch.empty_like(g)
+    d = delta.double()
+    for o, gs, ks in zip(out.view(-1).split(_FMA_CHUNK), g.view(-1).split(_FMA_CHUNK),
+                         k.view(-1).split(_FMA_CHUNK)):
+        o.copy_(gs.double() - ks.double() * d)
+    return out
+
+
 def _leaf(g: torch.Tensor, r: torch.Tensor, eb_rel: float, half: int):
     """(dequantized, residual, code entropy in bits) of one leaf."""
     g = g.to(torch.float32) + r
@@ -77,7 +93,7 @@ def _leaf(g: torch.Tensor, r: torch.Tensor, eb_rel: float, half: int):
     delta = 2.0 * (vr * eb_rel)
     k = torch.round(g / delta)  # a true division; round half to even
     gq = k * delta
-    resid = (g.double() - k.double() * delta.double()).float()  # the FMA
+    resid = _fma_residual(g, k, delta)  # the FMA
     kc = torch.clamp(k, -half, half) + half
     codes = _device.to_int_saturating(kc).reshape(-1)
     counts = torch.bincount(codes, minlength=2 * half + 1)

@@ -46,6 +46,7 @@ def make_train_step(model: BaseLM, opt_cfg: adamw.AdamWConfig,
                 grads, gc_state, gm = compress.compress(grad_comp, grads, opt_state["gc"])
                 for r, new in zip(pytree.leaves(opt_state["gc"]), pytree.leaves(gc_state)):
                     r.copy_(new)
+                del gc_state  # its copy is in place: free it before AdamW's temporaries
                 new_state["gc"] = opt_state["gc"]
                 metrics.update(gm)
             params, new_state["adam"], om = adamw.update(

@@ -1042,3 +1042,76 @@ def test_recurrent_greedy_decode_on_card_tracks_cpu(cuda_device, name):
         gtoks.append(gfeed.cpu())
     assert torch.equal(torch.cat(gtoks, 1), torch.cat(ctoks, 1))
     assert int(gcache["pos"]) == int(ccache["pos"]) == 20
+
+
+# -- the encoder-decoder, and the train step of every family on the card ----
+
+
+def test_encdec_cached_decode_on_card_tracks_cpu(cuda_device):
+    """The reduced seamless-m4t-large-v2 at float32: 8 tokens one at a time
+    through the cache, frames with the first (the encoder runs once, its
+    memory is written into the cache and read back by the later steps), on
+    the card and on the CPU: logits within 1e-3 * max|logit| (the K/V are
+    bfloat16 in the cache), and the whole within 5e-2 * max|logit| of the
+    card's parallel forward (tests/test_arch_smoke.py's bound)."""
+    cfg, cpu, cparams, card, params = _reduced_pair("seamless-m4t-large-v2", cuda_device)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.frontend_len, cfg.d_model))
+                              .astype(np.float32))
+    full, _ = card.forward(params, {"tokens": toks.to(cuda_device),
+                                    "frames": frames.to(cuda_device)})
+    ccache, gcache = cpu.init_cache(2, 16), card.init_cache(2, 16)
+    outs = []
+    for t in range(8):
+        cb = {"tokens": toks[:, t:t + 1]}
+        if t == 0:
+            cb["frames"] = frames
+        want, ccache = cpu.forward(cparams, cb, ccache)
+        got, gcache = card.forward(params, {k: v.to(cuda_device) for k, v in cb.items()}, gcache)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-3 * float(want.abs().max()))
+        outs.append(got)
+    assert int(gcache["pos"]) == 8 and gcache["memory"].device.type == "cuda"
+    dec = torch.cat(outs, dim=1)
+    scale = float(full.abs().max())
+    assert float((dec - full).abs().max()) / scale < 5e-2
+
+
+ZOO = ["llama4-scout-17b-a16e", "deepseek-v2-236b", "zamba2-1.2b", "xlstm-1.3b",
+       "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_train_step_on_card_tracks_cpu(cuda_device, name):
+    """One `make_train_step` with gradient compression of each reduced
+    family at float32 from the same weights on the card and on the CPU
+    (the encoder-decoder's batch carries frames): losses within rtol 1e-5,
+    grad norms within rtol 1e-4, params within 1e-5 * max|p| plus
+    2 * lr, the most a flipped gradient code can move one Adam step
+    (tests/test_torch_train.py)."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime.steps import init_opt_state, make_train_step
+
+    cfg, cpu, cparams, card, params = _reduced_pair(name, cuda_device)
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), 0)
+    if cfg.encdec:
+        batch["frames"] = np.random.default_rng(5).standard_normal(
+            (4, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    gc = GradCompressConfig(eb_rel=1e-3)
+    opt = AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5)
+    out = {}
+    for dev, model, p in (("cpu", cpu, cparams), (cuda_device, card, params)):
+        step = make_train_step(model, opt, gc)
+        p, _, m = step(p, init_opt_state(p, gc), {k: torch.from_numpy(v).to(dev)
+                                                  for k, v in batch.items()})
+        assert all(v.device.type == torch.device(dev).type for v in m.values())
+        out[str(dev)] = (p, {k: float(v) for k, v in m.items()})
+    (wp, wm), (gp, gm) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(gm["loss"], wm["loss"], rtol=1e-5)
+    np.testing.assert_allclose(gm["grad_norm"], wm["grad_norm"], rtol=1e-4)
+    for a, b in zip(_tree_leaves(gp), _tree_leaves(wp), strict=True):
+        assert a.device.type == "cuda"
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()) + 2 * wm["lr"], err
