@@ -41,10 +41,12 @@ phase that goes wrong:
    16-leaf tree through `CheckpointManager(CheckpointConfig(dir,
    cache=True, device_encode=True, workers=4))` at steps 0-2 (cold,
    identical, perturbed), with each save's ms, bytes, ratio and cache
-   events, K1 and K2 launched and no decline; `restore()` within each
-   lossy leaf's bound and raw leaves bit for bit; a fresh manager's
-   restore and all-hit save; `async_save` + `wait`; `workers=0` writing
-   step 1's `data.bin` again;
+   events, K1 and K2 launched and no decline; `restore_tree` of step 2
+   without the two Hurricane lossy leaves (`CKPT_UNDECODED`: the host
+   decoder's minutes) within each lossy leaf's bound and raw leaves bit
+   for bit; a raw step carrying the same cache, a fresh
+   manager's restore of it and all-hit save; `async_save` + `wait`;
+   `workers=0` writing step 1's `data.bin` again;
 8. the quality targets (fixed_psnr 60, fixed_ratio 8, fixed_ssim 0.97,
    fixed_correlation 0.995, fixed_ks 0.1): `solve_many` on the 17
    paper-sized fields under each mode beside `select_many` (one
@@ -106,8 +108,10 @@ phase that goes wrong:
    `--resume --steps 25` must restore step 20 bit for bit and give finite
    losses; then one lossy save of the trained params under
    fixed_accuracy(1e-4) with the device encoders is timed (ms, bytes,
-   ratio, codecs; not restored: the host Huffman decoder would take
-   minutes). `[train-ckpt]` runs the launcher at the --smoke size with
+   ratio, codecs, and the device encoder's declines: the full-depth MLP
+   stacks overflow the ZFP device encoder's int32 stream offsets, and the
+   host coder takes them; not restored: the host Huffman decoder would
+   take minutes). `[train-ckpt]` runs the launcher at the --smoke size with
    `--compress-ckpt --ckpt-opt-ratio 8`: each restored params leaf within
    1e-4 of its value range, the optimizer leaves under fixed_ratio, and a
    resume. `[train-cpu-vs-card]` takes 5 reduced float32 steps from the
@@ -130,7 +134,22 @@ phase that goes wrong:
    xlstm-1.3b and seamless-m4t-large-v2 on the card to the CPU's and
    prints whether the MoE gradients agree bit for bit across two card
    runs;
-14. one JSON line with every kernel's launches on its path, error, times,
+14. scale-out (`[sharded]`, after the target phases): four ranks on the
+   card through `launch/mhrun.py` over gloo, a (2, 2) ('data', 'model')
+   mesh, each rank mapping only its shards of the 17 paper fields, two
+   512^3 NYX volumes (made first, one process a volume) and a
+   replicated leaf onto the card; `plan_tree` under samples and stats at
+   eb_rel 1e-4 and fixed_psnr(60) against the unsharded `select_many` /
+   `solve_many` on the card (samples equal, stats within the golden
+   tolerances, the same on every rank; the gathered fields named), with
+   the gloo staging timed alone; a cooperative
+   `CheckpointConfig(sharded=True, device_encode=True)` save (per-host
+   files, commit markers, the v3 manifest, K1/K2 counted on every rank);
+   an elastic `restore_tree` of ATM_00, ATM_03 and the leaf under (4, 1)
+   within eb; smollm-360m's params and AdamW moments laid out by
+   `TRAIN_RULES`, saved raw and restored under (1, 4) bit for bit; and
+   K1/K2 at the shard shapes (`[sharded-kernels]`);
+15. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -150,8 +169,9 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 `--recurrent` only the zamba2-1.2b and xlstm-1.3b ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
-`--zoo` only the phases of 13, and `--train-profile` traces three
-full-width train steps (`train_profile`).
+`--zoo` only the phases of 13, `--sharded` only the phase of 14 (with the
+fields it needs), and `--train-profile` traces three full-width train
+steps (`train_profile`).
 """
 
 from __future__ import annotations
@@ -1726,7 +1746,8 @@ def phase_train(torch, np, dev) -> dict:
     checkpoints every 10 steps (step ms, tokens/s, peak memory, losses,
     wire bits; every leaf of one step's compression held to its contract),
     a resume from step 20 to 25 (the restored tree bit for bit against the
-    trained one), then one lossy save of the trained params, timed."""
+    trained one), then one lossy save of the trained params, timed, with
+    the device encoder's declines."""
     import shutil
 
     from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
@@ -1784,7 +1805,9 @@ def phase_train(torch, np, dev) -> dict:
     del again, probe2
     shutil.rmtree(ckpt, ignore_errors=True)
 
-    # one lossy save of the trained params
+    # one lossy save of the trained params at full depth: the ZFP device
+    # encoder declines the MLP stacks (int32 stream offsets, ROADMAP §C)
+    # and the host coder takes them
     lossy = _train_dir("train_lossy")
     mgr = CheckpointManager(CheckpointConfig(str(lossy), policy=Policy.fixed_accuracy(eb_rel=1e-4),
                                              compress=True, device_encode=True), device=dev)
@@ -1796,14 +1819,15 @@ def phase_train(torch, np, dev) -> dict:
     codecs = {}
     for row in man["fields"]:
         codecs[row["codec"]] = codecs.get(row["codec"], 0) + 1
+    declined = {k: v - declines.get(k, 0) for k, v in device_encode.DECLINES.items()
+                if v != declines.get(k, 0)}
     log("train", json.dumps(dict(
         lossy_save_ms=save_ms, data_bytes=man["total_bytes"], raw_bytes=man["raw_bytes"],
         ratio=man["raw_bytes"] / man["total_bytes"], codecs=codecs,
         codec_of={row["name"]: row["codec"] for row in man["fields"]},
         k1_launches=lorenzo.LAUNCHES["lorenzo2d_encode"],
         k2_launches=lorenzo.LAUNCHES["lorenzo3d_encode"],
-        declines={k: v - declines.get(k, 0) for k, v in device_encode.DECLINES.items()
-                  if v != declines.get(k, 0)})))
+        declined=sum(declined.values()), declines=declined)))
     shutil.rmtree(lossy, ignore_errors=True)
     return first
 
@@ -2677,6 +2701,10 @@ def phase_warm(torch, np, dev, atm, hurricane):
 
 #: the checkpoint phase's steps: cold, identical, perturbed
 CKPT_STEPS = ("cold", "identical", "perturbed")
+#: `[ckpt]`'s leaves its step-2 restore does not decode: the host Huffman
+#: decoder takes ~60 s for each 100x500x500 Hurricane leaf (the main path
+#: and `[decode]` decode those fields); the saves keep every leaf whole
+CKPT_UNDECODED = ("hur/sz", "hur/zfp")
 
 
 def phase_ckpt(torch, np, dev, atm, hurricane, rows, card):
@@ -2685,11 +2713,12 @@ def phase_ckpt(torch, np, dev, atm, hurricane, rows, card):
     device_encode=True, workers=4))` at steps 0, 1 and 2 (cold, identical,
     one field times 1000 and one nudged by an ulp), each save's ms,
     `data.bin` bytes, ratio and cache events; no device encode declined.
-    `restore()` of step 2: each lossy leaf within its bound, raw leaves bit
-    for bit, on the card. A fresh manager on the directory restores and
-    saves again, all hits; one `async_save` + `wait`; `workers=0` on step
-    1's tree writes step 1's `data.bin`. Returns the K1/K2 launches of the
-    phase."""
+    `restore_tree` of step 2 but `CKPT_UNDECODED`: each lossy leaf within
+    its bound, raw leaves bit for bit, on the card. Step 3 saves the tree raw (its manifest carries
+    the same decision cache); a fresh manager on the directory restores it
+    (bit for bit, no lossy leaf decoded a second time) and saves again, all
+    hits; one `async_save` + `wait`; `workers=0` on step 1's tree writes
+    step 1's `data.bin`. Returns the K1/K2 launches of the phase."""
     import tempfile
 
     from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
@@ -2741,12 +2770,19 @@ def phase_ckpt(torch, np, dev, atm, hurricane, rows, card):
         check(sum(de.DECLINES.values()) == 0, f"ckpt: device encode declined: {dict(de.DECLINES)}")
         for name in ("lorenzo2d_encode", "lorenzo3d_encode"):
             check(launches[name] >= 1, f"ckpt: {name} never launched by the saves")
-        (step, flat), restore_ms = _timed(torch, mgr.restore)
+        decoded = {k: v for k, v in perturbed.items() if k != "hur"}
+        check(set(CKPT_UNDECODED) == {f"hur/{k}" for k in perturbed["hur"]},
+              f"ckpt: undecoded {CKPT_UNDECODED}")
+        (step, got), restore_ms = _timed(torch, lambda: mgr.restore_tree(decoded))
         check(step == 2, f"restored step {step}")
         rows_by_name = {r["name"]: r for r in manifest(paths[2])["fields"]}
         src = {n: v for n, v in zip(PYTREE_NAMES, _leaves(perturbed))}
+        names = [n for n in PYTREE_NAMES if n not in CKPT_UNDECODED]
+        flat = dict(zip(names, _leaves(got)))
+        del got
         err_over_eb = {}
-        for name, x in src.items():
+        for name in names:
+            x = src[name]
             y, row = flat[name], rows_by_name[name]
             xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
             check(y.device.type == dev.type and tuple(y.shape) == tuple(xt.shape)
@@ -2761,22 +2797,33 @@ def phase_ckpt(torch, np, dev, atm, hurricane, rows, card):
                 check(torch.equal(_bytes(torch, y.float()), _bytes(torch, xt.float())),
                       f"{name}: degenerate raw leaf changed")
         del flat
+        # a raw step carries the same decision cache in its manifest: the
+        # fresh manager's restore reloads it without decoding the lossy
+        # leaves again (the host decoder's minutes are spent once, above)
+        mgr.save(3, perturbed, lossy=lambda name: False)
         fresh = CheckpointManager(config(d), device=dev)
-        _, fresh_restore_ms = _timed(torch, fresh.restore)
+        (step, flat), fresh_restore_ms = _timed(torch, fresh.restore)
+        check(step == 3, f"fresh manager restored step {step}")
+        for name, x in src.items():
+            xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+            check(torch.equal(_bytes(torch, flat[name]), _bytes(torch, xt)),
+                  f"{name}: raw step not bit for bit")
+        del flat
         fresh.cache.reset_stats()
-        _, fresh_ms = _timed(torch, lambda: fresh.save(3, perturbed))
+        _, fresh_ms = _timed(torch, lambda: fresh.save(4, perturbed))
         check(_events(fresh.cache) == {"miss": 0, "hit": lossy, "invalidated": 0},
               f"fresh manager: events {_events(fresh.cache)}")
-        thread, enqueue_ms = _timed(torch, lambda: mgr.async_save(4, perturbed))
+        thread, enqueue_ms = _timed(torch, lambda: mgr.async_save(5, perturbed))
         _, wait_ms = _timed(torch, mgr.wait)
-        check(thread.save_result["path"].endswith("step_000000004"), f"async: {thread.save_result}")
+        check(thread.save_result["path"].endswith("step_000000005"), f"async: {thread.save_result}")
         serial_dir = str(Path(tmp) / "serial")
         serial = CheckpointManager(config(serial_dir, workers=0), device=dev)
         path, serial_ms = _timed(torch, lambda: serial.save(1, tree))
         with open(Path(path) / "data.bin", "rb") as f:
             check(f.read() == step1_data, "workers=0 data.bin differs from the threaded step 1")
     log("ckpt", json.dumps(dict(
-        restore_ms=restore_ms, max_err_over_eb=err_over_eb, fresh_restore_ms=fresh_restore_ms,
+        restore_ms=restore_ms, undecoded=CKPT_UNDECODED, max_err_over_eb=err_over_eb,
+        fresh_restore_ms=fresh_restore_ms,
         fresh_save_ms=fresh_ms, async_enqueue_ms=enqueue_ms, async_wait_ms=wait_ms,
         serial_save_ms=serial_ms, k1_launches=launches["lorenzo2d_encode"],
         k2_launches=launches["lorenzo3d_encode"], declines=0, card=card)))
@@ -2916,7 +2963,428 @@ def lorenzo_times(torch, np, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [sharded]: the shard-local engine and the multi-host checkpoint, 4 ranks
+# ---------------------------------------------------------------------------
+
+#: 4 ranks share the card: NCCL refuses two ranks on one GPU, so gloo
+SHARDED_RANKS, SHARDED_BACKEND, SHARDED_MESH = 4, "gloo", (2, 2)
+#: NYX-like volumes at the paper's size (`benchmarks/common.py`), made at
+#: the phase's start, one process a volume, before anything is timed
+NYX_FIELDS, NYX_SIZE = 2, (512, 512, 512)
+#: layouts over ('data', 'model'): three ATM fields split by rows over
+#: 'data' (900-row shards, replicated over 'model'), one over both (900 x
+#: 1800), the NYX volumes over both (256 x 256 x 512), every Hurricane
+#: field over 'data' on dim 1 (250 wide: not 4-aligned, so gathered), a
+#: small replicated leaf
+SHARDED_LAYOUTS = {
+    "ATM_00": ("data", None), "ATM_01": ("data", None), "ATM_02": ("data", None),
+    "ATM_03": ("data", "model"), "nyx": ("data", "model", None),
+    "hur": (None, "data", None), "norm": (None,),
+}
+#: the elastic restore's subset: the host Huffman decoder takes 11-64 s a
+#: field, so the restore reads the fields whose shards each rank decodes
+#: in seconds; the save is never cut
+SHARDED_RESTORE = ("atm/ATM_00", "atm/ATM_03", "norm")
+SHARDED_TIMEOUT_S = 300.0
+STATE_ARCH = "smollm-360m"
+
+
+def sharded_dir() -> Path:
+    return ROOT / "build" / "sharded"
+
+
+def start_nyx() -> list:
+    """Start one process a NYX field, each writing its volume as .npy under
+    `sharded_dir()/fields` (numpy's FFT, ~45 s a 512^3 field): process i
+    runs `nyx_suite` with every field but its i-th skipped, so the fields
+    are `nyx_suite`'s own."""
+    import shutil
+
+    out = sharded_dir() / "fields"
+    shutil.rmtree(sharded_dir(), ignore_errors=True)
+    out.mkdir(parents=True)
+    code = (
+        "import sys, numpy as np; sys.path.insert(0, sys.argv[1]);"
+        "import benchmarks.common as c; i = int(sys.argv[3]); real = c._spectral_field;"
+        "c._spectral_field = lambda *a, n=iter(range(99)): real(*a) if next(n) == i else None;"
+        f"d = c.nyx_suite({NYX_FIELDS}, size={NYX_SIZE});"
+        "[np.save(f'{sys.argv[2]}/nyx_{k}.npy', v) for k, v in d.items() if v is not None]"
+    )
+    return [subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out), str(i)])
+            for i in range(NYX_FIELDS)]
+
+
+#: K1/K2 at the shard shapes the [sharded] save encodes: an ATM field's
+#: 900-row and 900 x 1800 shards, a NYX volume's 256 x 256 x 512
+SHARD_KERNEL_SHAPES = (("lorenzo2d_encode", (900, 3600)), ("lorenzo2d_encode", (900, 1800)),
+                       ("lorenzo3d_encode", (256, 256, 512)))
+
+
+def shard_kernel_times(torch, np, dev) -> list:
+    """K1/K2 at `SHARD_KERNEL_SHAPES`, each exact against its plain version
+    first: device ms (`time_ms`), plain ms and the bound."""
+    from repro_torch.kernels import lorenzo, ref
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    rows = []
+    for i, (name, shape) in enumerate(SHARD_KERNEL_SHAPES):
+        kernel = getattr(lorenzo, name)
+        x, eb = tie_field(np, shape, 200 + i)
+        xt = torch.from_numpy(x).to(dev)
+        eb_dev = torch.tensor(eb, dtype=torch.float32, device=dev)
+        err = int((kernel(xt, eb).long() - ref.lorenzo_encode_ref(xt, eb_dev).long()).abs().max())
+        check(err == 0, f"{name} differs from its plain version at {shape}: {err}")
+        ms = time_ms(torch, lambda: kernel(xt, eb), flush)
+        plain_ms = time_ms(torch, lambda: ref.lorenzo_encode_ref(xt, eb_dev), flush)
+        bound_ms, bound_by = bound(name, shape)
+        rows.append(dict(name=name, shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log("sharded-kernels", json.dumps(rows[-1]))
+    del flush
+    return rows
+
+
+def _selection_record(s) -> dict:
+    return dict(codec=s.codec, eb_abs=s.eb_abs, eb_sz=s.eb_sz, br_sz=s.br_sz,
+                br_zfp=s.br_zfp, psnr_target=s.psnr_target, vr=s.vr, r_sp=s.r_sp)
+
+
+def phase_sharded(torch, np, dev, atm, hurricane, card) -> dict:
+    """`[sharded]`: four ranks on the one card through `launch/mhrun.py`
+    (gloo, a (2, 2) ('data', 'model') mesh), each mapping only its own
+    shard of the 17 paper fields and two 512^3 NYX volumes onto the card
+    (made first, while the paper fields are written out: set-up, untimed).
+    `plan_tree` under samples and stats at eb_rel 1e-4 and under samples at
+    fixed_psnr(60) is held to the card's unsharded `select_many` /
+    `solve_many` (samples equal, stats to the golden tolerances), the same
+    on every rank; a cooperative `CheckpointConfig(sharded=True,
+    device_encode=True)` save (per-host files, commit markers, the v3
+    manifest; K1/K2 counted on every rank); an elastic `restore_tree` of
+    `SHARDED_RESTORE` under (4, 1), within eb; then smollm-360m's params
+    and AdamW moments laid out by `TRAIN_RULES`, saved raw and restored
+    under (1, 4) bit for bit. Returns the phase's K1/K2 launches."""
+    from repro_torch.core import Policy, select_many, solve_many
+    from repro_torch.launch import mhrun
+
+    free_card(torch)
+    fdir = sharded_dir() / "fields"
+    t0 = time.perf_counter()
+    procs = start_nyx()
+    try:
+        fields: dict = {}
+        for name, x in atm.items():
+            np.save(fdir / f"atm_{name}.npy", x)
+            fields[f"atm/{name}"] = (str(fdir / f"atm_{name}.npy"), SHARDED_LAYOUTS[name])
+        for name, x in hurricane.items():
+            np.save(fdir / f"hur_{name}.npy", x)
+            fields[f"hur/{name}"] = (str(fdir / f"hur_{name}.npy"), SHARDED_LAYOUTS["hur"])
+        for p in procs:
+            p.wait(timeout=600)
+            check(p.returncode == 0, f"NYX field generation failed ({p.returncode})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for path in sorted(fdir.glob("nyx_*.npy")):
+        fields[f"nyx/{path.stem[4:]}"] = (str(path), SHARDED_LAYOUTS["nyx"])
+    check(sum(k.startswith("nyx/") for k in fields) == NYX_FIELDS, "NYX fields missing")
+    np.save(fdir / "norm.npy", np.linspace(0.9, 1.1, 4096, dtype=np.float32))
+    fields["norm"] = (str(fdir / "norm.npy"), SHARDED_LAYOUTS["norm"])
+    write_s = time.perf_counter() - t0
+    shard_kernel_times(torch, np, dev)
+    # the unsharded baseline on the card: the same fields, in the same order,
+    # from host memory
+    arrays = [np.load(p) for p, _ in fields.values()]
+    nbytes = sum(a.nbytes for a in arrays)
+    pol = Policy.fixed_accuracy(eb_rel=EB_REL)
+    base, base_ms = {}, {}
+    for mode, run in (("fixed_accuracy", lambda: select_many(arrays, policy=pol, device=dev)),
+                      ("fixed_psnr", lambda: [s.selection for s in solve_many(
+                          arrays, Policy.fixed_psnr(60.0), device=dev)])):
+        sels, base_ms[mode] = _timed(torch, run)
+        base[mode] = [_selection_record(s) for s in sels]
+    del arrays
+    free_card(torch)
+    log("sharded", f"{len(fields)} fields, {nbytes / 1e9:.2f} GB written as .npy in "
+        f"{write_s:.1f} s; unsharded select_many {base_ms['fixed_accuracy']:.1f} ms, "
+        f"solve_many(fixed_psnr 60) {base_ms['fixed_psnr']:.1f} ms on the card")
+    ckpt = sharded_dir() / "ckpt"
+    t0 = time.perf_counter()
+    results = mhrun.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-worker"], SHARDED_RANKS,
+        scenario="sharded", backend=SHARDED_BACKEND, timeout_s=SHARDED_TIMEOUT_S,
+        workdir=str(sharded_dir() / "mhrun"), build_kernels=True,
+        args=dict(fields=fields, base=base, ckpt=str(ckpt), state_ckpt=str(sharded_dir() / "state")),
+    )
+    job_s = time.perf_counter() - t0
+    payloads = mhrun.require_success(results)
+    p0 = payloads[0]
+    log("sharded", f"backend {p0['backend']}, ranks {[p['rank'] for p in payloads]}, mesh "
+        f"{p0['mesh']}, job {job_s:.1f} s")
+    log("sharded", json.dumps(dict(shard_local=p0["paths"]["shard-local"],
+                                   gathered=p0["paths"]["gather"])))
+    for p in payloads[1:]:
+        check(p["decisions"] == p0["decisions"], f"rank {p['rank']} holds other decisions")
+    for p in payloads:
+        check(not p["mismatches"], f"rank {p['rank']}: decisions off the unsharded ones: "
+              f"{p['mismatches'][:3]}")
+    for mode in ("samples", "stats", "fixed_psnr"):
+        unsharded = base_ms["fixed_psnr" if mode == "fixed_psnr" else "fixed_accuracy"]
+        log("sharded", json.dumps(dict(
+            mode=mode, plan_ms=max(p["plan_ms"][mode] for p in payloads),
+            plan_ms_by_rank=[p["plan_ms"][mode] for p in payloads], unsharded_ms=unsharded,
+            equal=p0["equal"][mode], fields=len(fields))))
+    # where the samples time goes: the gloo staging of the gathered fields
+    # alone, and the engine on the shard-local fields alone
+    log("sharded", json.dumps(dict(
+        gather_ms=max(p["gather_ms"] for p in payloads), gathered_gb=p0["gathered_gb"],
+        plan_ms_shard_local=max(p["plan_ms_local"] for p in payloads),
+        shard_local_fields=len(p0["paths"]["shard-local"]))))
+    # the cooperative save: per-host files, commit markers, the v3 manifest
+    step = ckpt / "step_000000001"
+    with open(step / "manifest.json") as f:
+        man = json.load(f)
+    check(man["version"] == 3 and man["layout"] == "segments", "sharded manifest is not v3 segments")
+    check(man["hosts"] == list(range(SHARDED_RANKS)), f"manifest hosts {man['hosts']}")
+    host_bytes = {}
+    for h in man["hosts"]:
+        check((step / f"commit.{h}").exists(), f"commit.{h} missing")
+        host_bytes[h] = (step / f"data.{h}.bin").stat().st_size
+        check(host_bytes[h] == man["completion"][str(h)], f"data.{h}.bin size off its completion")
+    launches = {k: sum(p["launches"][k] for p in payloads)
+                for k in ("lorenzo2d_encode", "lorenzo3d_encode")}
+    for name, n in launches.items():
+        check(n >= 1, f"[sharded]: {name} never launched by the save")
+    for p in payloads:
+        check(not p["declines"], f"rank {p['rank']}: device encode declined {p['declines']}")
+    log("sharded", json.dumps(dict(
+        save_ms=max(p["save_ms"] for p in payloads), save_ms_by_rank=[p["save_ms"] for p in payloads],
+        data_bytes=man["total_bytes"], raw_bytes=man["raw_bytes"],
+        ratio=man["raw_bytes"] / man["total_bytes"], bytes_by_host=host_bytes,
+        codecs={k: sum(fl["codec"] == k for fl in man["fields"]) for k in ("sz", "zfp", "raw")},
+        k1_by_rank=[p["launches"]["lorenzo2d_encode"] for p in payloads],
+        k2_by_rank=[p["launches"]["lorenzo3d_encode"] for p in payloads], declines=0, card=card)))
+    log("sharded", json.dumps(dict(
+        restore="(4, 1)", fields=list(SHARDED_RESTORE),
+        restore_ms=max(p["restore_ms"] for p in payloads),
+        max_err_over_eb=max(max(p["restore_err"].values()) for p in payloads),
+        segments_decoded=[p["restore_stats"]["segments_decoded"] for p in payloads])))
+    log("sharded-state", json.dumps(dict(
+        arch=STATE_ARCH, params=p0["state"]["params"], state_gb=p0["state"]["bytes"] / 1e9,
+        save_ms=max(p["state"]["save_ms"] for p in payloads),
+        restore_ms=max(p["state"]["restore_ms"] for p in payloads),
+        restore="(1, 4)", bit_for_bit=all(p["state"]["equal"] for p in payloads),
+        leaves_split=p0["state"]["split"], leaves=p0["state"]["leaves"])))
+    for p in payloads:
+        check(p["state"]["equal"], f"rank {p['rank']}: the train state did not restore bit for bit")
+    log("sharded", json.dumps(dict(
+        peak_gib_by_rank=[p["peak_gib"] for p in payloads],
+        rank_s=[p["seconds"] for p in payloads], card=card)))
+    import shutil
+
+    shutil.rmtree(sharded_dir(), ignore_errors=True)
+    return launches
+
+
+def sharded_worker(spec: dict, rank: int) -> dict:
+    """One rank of `[sharded]` (`phase_sharded` says what it checks)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import Policy
+    from repro_torch.core import device_encode as de
+    from repro_torch.core import sharded as shd
+    from repro_torch.kernels import lorenzo
+    from repro_torch.launch.mesh import describe_mesh, make_emulated_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    t_start = time.perf_counter()
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    a = spec["args"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_emulated_mesh(SHARDED_MESH)
+    mesh41 = make_emulated_mesh((4, 1))
+    mesh14 = make_emulated_mesh((1, 4))
+
+    def lay(m, spec_):
+        return rsh.NamedSharding(m, rsh.spec_to_placements(m, tuple(spec_)))
+
+    names = list(a["fields"])
+    src = {k: np.load(path, mmap_mode="r") for k, (path, _) in a["fields"].items()}
+    leaves = {k: dist.put_global(src[k], lay(mesh, sp)) for k, (_, sp) in a["fields"].items()}
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        dist.barrier("sharded:timed", 300.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    pol = Policy.fixed_accuracy(eb_rel=EB_REL)
+    runs = {"samples": (pol, "samples", "fixed_accuracy"), "stats": (pol, "stats", "fixed_accuracy"),
+            "fixed_psnr": (Policy.fixed_psnr(60.0), "auto", "fixed_psnr")}
+    plan_ms, decisions, equal, mismatches, paths = {}, {}, {}, [], {}
+    for mode, (p_, rec, base_key) in runs.items():
+        plans, plan_ms[mode] = timed(
+            lambda: shd.plan_tree([leaves[k] for k in names], p_, reconcile=rec))
+        got = [_selection_record(p.selection) for p in plans]
+        decisions[mode] = got
+        want = a["base"][base_key]
+        n_eq = 0
+        for k, g, w in zip(names, got, want):
+            if mode == "stats":
+                ok = (g["codec"] == w["codec"] and g["eb_abs"] == w["eb_abs"]
+                      and abs(g["eb_sz"] - w["eb_sz"]) <= EB_SZ_RTOL * abs(w["eb_sz"])
+                      and abs(g["br_sz"] - w["br_sz"]) <= BR_ATOL
+                      and abs(g["br_zfp"] - w["br_zfp"]) <= BR_ATOL)
+            else:
+                ok = g == w
+            n_eq += ok
+            if not ok:
+                mismatches.append((mode, k, g, w))
+        equal[mode] = n_eq
+        if mode == "samples":
+            paths = {"shard-local": [k for k, p in zip(names, plans) if p.path == "shard-local"],
+                     "gather": [k for k, p in zip(names, plans) if p.path == "gather"]}
+    del plans  # each holds its gathered fields' host copies
+    # the samples time taken apart: the gathered fields' gloo staging alone
+    # (every rank receives each whole field through the host), and the
+    # engine on the shard-local fields alone
+    gathered, gather_ms = timed(lambda: [dist.gather(leaves[k]) for k in paths["gather"]])
+    gathered_gb = sum(g.numel() * g.element_size() for g in gathered) / 1e9
+    del gathered
+    _, plan_ms_local = timed(lambda: shd.plan_tree(
+        [leaves[k] for k in paths["shard-local"]], pol, reconcile="samples"))
+    # the cooperative save, every field lossy at eb_rel 1e-4, device encode
+    tree = {}
+    for k in names:
+        node = tree
+        *parents, leaf = k.split("/")
+        for p_ in parents:
+            node = node.setdefault(p_, {})
+        node[leaf] = leaves[k]
+    mgr = CheckpointManager(CheckpointConfig(a["ckpt"], policy=pol, sharded=True,
+                                             device_encode=True, workers=4,
+                                             barrier_timeout_s=300.0), device=dev)
+    lorenzo.reset_launches()
+    de.DECLINES.clear()
+    _, save_ms = timed(lambda: mgr.save(1, tree))
+    launches = dict(lorenzo.LAUNCHES)
+    declines = dict(de.DECLINES)
+    # the elastic restore of the subset under (4, 1)
+    want_tree = {}
+    shardings = {}
+    for k in SHARDED_RESTORE:
+        node, snode = want_tree, shardings
+        *parents, leaf = k.split("/")
+        for p_ in parents:
+            node, snode = node.setdefault(p_, {}), snode.setdefault(p_, {})
+        node[leaf] = leaves[k]
+        snode[leaf] = lay(mesh41, a["fields"][k][1])
+    (_, restored), restore_ms = timed(lambda: mgr.restore_tree(want_tree, shardings=shardings))
+    with open(os.path.join(a["ckpt"], "step_000000001", "manifest.json")) as f:
+        ebs = {fl["name"]: fl["eb"] for fl in json.load(f)["fields"]}
+    errs = {}
+    for k in SHARDED_RESTORE:
+        node = restored
+        for part in k.split("/"):
+            node = node[part]
+        check(node.device_mesh is mesh41, f"{k}: not on the (4, 1) mesh")
+        st, sp = rsh.local_box(lay(mesh41, a["fields"][k][1]), tuple(src[k].shape))
+        box = torch.from_numpy(np.array(src[k][tuple(slice(x, y) for x, y in zip(st, sp))]))
+        err = float((node.to_local().cpu().double() - box.double()).abs().max())
+        errs[k] = err / ebs[k]
+        check(err <= ebs[k], f"{k}: restored max |err| {err} > eb {ebs[k]}")
+    restore_stats = mgr.last_restore_stats
+    del leaves, restored, tree, want_tree
+    torch.cuda.empty_cache()
+    # a training state laid out by the model's own rules, saved raw, restored
+    # under (1, 4) bit for bit
+    cfg = get_config(STATE_ARCH)
+    desc = build_model(cfg, device=dev).desc()
+    axes, abstract = mnn.axes_tree(desc), mnn.abstract_tree(desc)
+    full = {"params": mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    full["opt"] = {
+        "m": mnn.tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen, device=dev), full["params"]),
+        "v": mnn.tree_map(lambda p: 1e-6 * torch.rand(p.shape, generator=gen, device=dev), full["params"]),
+    }
+    lay22 = rsh.tree_shardings(axes, rsh.TRAIN_RULES, mesh, abstract)
+    lay14 = rsh.tree_shardings(axes, rsh.TRAIN_RULES, mesh14, abstract)
+    state_lay = {"params": lay22, "opt": {"m": lay22, "v": lay22}}
+    state14 = {"params": lay14, "opt": {"m": lay14, "v": lay14}}
+    flat_full = _flat(full)
+    flat_lay = _flat(state_lay)
+    state = _nest({k: dist.put_global(v, flat_lay[k]) for k, v in flat_full.items()})
+    smgr = CheckpointManager(CheckpointConfig(a["state_ckpt"], sharded=True, workers=4,
+                                              barrier_timeout_s=300.0), device=dev)
+    _, s_save_ms = timed(lambda: smgr.save(1, state, lossy=lambda name: False))
+    (_, back), s_restore_ms = timed(lambda: smgr.restore_tree(state, shardings=state14))
+    flat_14 = _flat(state14)
+    equal_state = True
+    for k, v in _flat(back).items():
+        st, sp = rsh.local_box(flat_14[k], tuple(flat_full[k].shape))
+        box = flat_full[k][tuple(slice(x, y) for x, y in zip(st, sp))]
+        equal_state &= bool(v.device_mesh is mesh14 and torch.equal(v.to_local(), box))
+    n_params = sum(v.numel() for k, v in flat_full.items() if k.startswith("params/"))
+    state_rec = dict(
+        params=n_params, bytes=sum(v.numel() * v.element_size() for v in flat_full.values()),
+        save_ms=s_save_ms, restore_ms=s_restore_ms, equal=equal_state,
+        leaves=len(flat_full),
+        split=sum(any(isinstance(p, Shard) for p in s.placements) for s in flat_lay.values()),
+    )
+    return dict(
+        rank=rank, backend=dist.backend(), mesh=describe_mesh(mesh)["shape"], plan_ms=plan_ms,
+        gather_ms=gather_ms, gathered_gb=gathered_gb, plan_ms_local=plan_ms_local,
+        decisions=decisions, equal=equal, mismatches=mismatches[:8], paths=paths,
+        save_ms=save_ms, launches=launches, declines=declines, restore_ms=restore_ms,
+        restore_err=errs, restore_stats=restore_stats, state=state_rec,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        seconds=time.perf_counter() - t_start,
+    )
+
+
+def _flat(tree) -> dict:
+    from repro_torch.core import pytree as pt
+
+    return {pt.leaf_name(p): v for p, v in pt.flatten_with_path(tree)[0]}
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        node = out
+        *parents, leaf = k.split("/")
+        for p_ in parents:
+            node = node.setdefault(p_, {})
+        node[leaf] = v
+    return out
+
+
+def sharded_only(torch, np, dev) -> dict:
+    """`[sharded]` alone: the paper fields, then the phase."""
+    atm, hurricane = paper_fields(np)
+    return {"launches": phase_sharded(torch, np, dev, atm, hurricane, card_line())}
+
+
 def main() -> int:
+    if "--sharded-worker" in sys.argv:
+        # one rank of [sharded], started by launch/mhrun.py
+        sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+        from repro_torch.launch import mhrun
+
+        return mhrun.worker_main(sys.argv[-1], {"sharded": sharded_worker})
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bot-times", action="store_true",
                         help="only build the kernels and print K5/K6 times (bot_times) as JSON")
@@ -2946,6 +3414,8 @@ def main() -> int:
     parser.add_argument("--zoo", action="store_true",
                         help="only run the encoder-decoder's serving and the zoo's training "
                         "phases (zoo_only)")
+    parser.add_argument("--sharded", action="store_true",
+                        help="only run the four-rank shard-local phase (sharded_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -2986,6 +3456,7 @@ def main() -> int:
                           (args.recurrent, recurrent_only),
                           (args.train, train_only),
                           (args.zoo, zoo_only),
+                          (args.sharded, sharded_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -3012,6 +3483,8 @@ def main() -> int:
         target_launches[name] += n
     for name, n in target_launches.items():
         check(n >= 1, f"{name} never launched from the target phase")
+        launches[name] += n
+    for name, n in phase_sharded(torch, np, dev, atm, hurricane, card).items():
         launches[name] += n
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))

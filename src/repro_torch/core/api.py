@@ -22,7 +22,9 @@ as a `Policy` (`core/policy.py`):
 `compress_pytree` also takes a `PolicySet` of per-leaf-name rules. Leaves
 are grouped by resolved policy, each group's decisions come from one
 batched `select_many` or `solve_many`, and the byte encoders then run on a
-thread pool.
+thread pool. A tree of DTensors (`runtime/sharding.py`) takes the
+shard-local engine (`core/sharded.py`): decisions without gathering a
+field, each leaf encoded as per-shard segments (`ShardedCompressedField`).
 The legacy keyword spelling (`mode=`, `eb_rel=`, ...) and a bare mode
 string or float bound in the policy slot map onto the equivalent `Policy`
 with a `DeprecationWarning`.
@@ -58,6 +60,26 @@ from .selector import (
 
 #: bytes per value of a recorded dtype name (bfloat16 without `ml_dtypes`)
 _dtype_itemsize = _device.itemsize
+
+
+@dataclass
+class ShardedCompressedField:
+    """A field compressed shard by shard (DESIGN.md §6): the global codec
+    decision and one encoded `Segment` per unique data shard, each covering
+    `view[start:stop]` of the folded float32 view. It reconstructs bit for
+    bit as the whole-field encoding would (SZ is elementwise, ZFP 4-block
+    local with 4-aligned shard boundaries)."""
+
+    codec: str
+    shape: tuple[int, ...]
+    dtype: str
+    view_shape: tuple[int, ...]
+    segments: list
+    selection: Selection | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(len(s.data) for s in self.segments)
 
 
 @dataclass
@@ -227,20 +249,33 @@ def _is_float(leaf) -> bool:
     return np.issubdtype(leaf.dtype, np.floating)
 
 
+def _dist():
+    # imported at call time: `runtime` imports the kernels, whose plain
+    # versions import `core`
+    from ..runtime import dist
+
+    return dist
+
+
 def _named_leaves_with_policies(
     leaves: list,
     pset: PolicySet,
     predicate: Callable[[str, Any], bool] | None,
+    gather: bool = True,
 ) -> tuple[list[tuple[str, Any]], dict[int, Policy]]:
     """Name every leaf, resolve its policy, and keep only the float leaves
     with a non-raw policy (that the deprecated `predicate`, when given,
     accepts) in the returned index -> Policy map. Tensors stay tensors;
-    anything else becomes a numpy array (a Python float a 0-d float64)."""
+    anything else becomes a numpy array (a Python float a 0-d float64).
+    With `gather`, a DTensor leaf is gathered into a host tensor (a
+    collective, in leaf order)."""
     named: list[tuple[str, Any]] = []
     pol_of: dict[int, Policy] = {}
     for path, leaf in leaves:
         name = _leaf_name(path)
-        if not isinstance(leaf, torch.Tensor):
+        if gather and _dist().is_dtensor(leaf):
+            leaf = _dist().gather(leaf)
+        elif not isinstance(leaf, torch.Tensor):
             leaf = np.asarray(leaf)
         named.append((name, leaf))
         if predicate is not None and not predicate(name, leaf):
@@ -287,7 +322,14 @@ def compress_pytree(
         default min(8, cpus - 1)). Decisions are batched regardless: each
         policy group's sampled blocks go through `select_many`
         (fixed_accuracy) or `solve_many` (the target modes).
-      sharded: the shard-local engine is not ported yet; True raises.
+      sharded: route the tree through the shard-local engine (DESIGN.md
+        §6, `core/sharded.py`): DTensor leaves are decided from per-shard
+        statistics merged with a collective (no gather) and encoded as
+        per-shard `Segment`s in a `ShardedCompressedField`; leaves the
+        engine cannot carry (plain tensors, arrays, uneven layouts) are
+        gathered and decided as the unsharded path would. Default None:
+        True when any leaf is a DTensor. Every rank of the job calls it,
+        and every rank gets the whole tree.
       cache: a `DecisionCache` carrying per-leaf decisions across repeated
         saves of the same tree: leaves whose sampled blocks fingerprint as
         before replay the previous decision (what the cold path would
@@ -315,13 +357,15 @@ def compress_pytree(
             DeprecationWarning,
             stacklevel=2,
         )
+    leaves, treedef = _pytree.flatten_with_path(tree)
+    if sharded is None:
+        sharded = any(_dist().is_dtensor(leaf) for _, leaf in leaves)
     if sharded:
-        raise NotImplementedError(
-            "compress_pytree(sharded=True) needs the shard-local engine "
-            "(core/sharded.py), not yet ported: ROADMAP.md queue A, item 14"
+        return _compress_pytree_sharded(
+            leaves, treedef, pset, predicate, workers, cache=cache,
+            device_encode=device_encode, device=device,
         )
     dev = _device.resolve(device)
-    leaves, treedef = _pytree.flatten_with_path(tree)
     named, pol_of = _named_leaves_with_policies(leaves, pset, predicate)
     sel_of: dict[int, Selection] = {}
     for p, idxs in group_by_policy(pol_of).items():
@@ -341,22 +385,111 @@ def compress_pytree(
         # records the true dtype, so decompress restores it
         return encode_with_selection(leaf, sel_of[i], device_encode=device_encode, device=dev)
 
-    n_workers = _default_workers() if workers is None else workers
-    if n_workers > 1 and len(named) > 1:
-        with ThreadPoolExecutor(max_workers=n_workers) as ex:
-            encoded = list(ex.map(encode, range(len(named))))
-    else:
-        encoded = [encode(i) for i in range(len(named))]
+    encoded = _encode_all(encode, len(named), workers)
     fields = {named[i][0]: cf for i, cf in enumerate(encoded)}
+    return CompressedTree(fields=fields, treedef=treedef)
+
+
+def _encode_all(encode: Callable[[int], Any], n: int, workers: int | None) -> list:
+    n_workers = _default_workers() if workers is None else workers
+    if n_workers > 1 and n > 1:
+        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+            return list(ex.map(encode, range(n)))
+    return [encode(i) for i in range(n)]
+
+
+def _compress_pytree_sharded(
+    leaves: list,
+    treedef: Any,
+    pset: PolicySet,
+    predicate: Callable[[str, Any], bool] | None,
+    workers: int | None,
+    cache=None,
+    device_encode: bool = False,
+    device=None,
+) -> CompressedTree:
+    """The shard-local engine behind `compress_pytree(sharded=True)`: one
+    `plan_tree` pass per policy group decides every float leaf without
+    gathering it; each rank encodes the segments it owns on the thread
+    pool, and the ranks then exchange their segments, so every rank holds
+    the whole tree (DESIGN.md §6)."""
+    from . import sharded as _sh
+
+    dev = _device.resolve(device)
+    named, pol_of = _named_leaves_with_policies(leaves, pset, predicate, gather=False)
+    plan_of: dict[int, Any] = {}
+    for p, idxs in group_by_policy(pol_of).items():
+        plans = _sh.plan_tree(
+            [named[i][1] for i in idxs], p, cache=cache,
+            names=[named[i][0] for i in idxs] if cache is not None else None,
+            device=dev,
+        )
+        plan_of.update(zip(idxs, plans))
+    # a leaf that does not ride its shards takes the copy `plan_tree`
+    # gathered, or (a raw leaf) is gathered here, on the calling thread, in
+    # leaf order (a collective), never on the encoders' threads
+    for i, (name, leaf) in enumerate(named):
+        plan = plan_of.get(i)
+        if plan is not None and plan.gathered is not None:
+            named[i] = (name, plan.gathered)
+            plan.gathered = None
+        elif _dist().is_dtensor(leaf) and not (plan is not None and plan.sharded):
+            named[i] = (name, _dist().gather(leaf))
+    host = _dist().process_index() if _dist().is_multihost() else None
+
+    def encode(i: int):
+        _, leaf = named[i]
+        plan = plan_of.get(i)
+        if plan is None:
+            return CompressedField(
+                "raw", _device.raw_bytes(leaf), tuple(leaf.shape), _device.dtype_name(leaf)
+            )
+        return _sh.encode_plan(
+            leaf, plan, host=host if plan.sharded else None,
+            device_encode=device_encode, device=dev,
+        )
+
+    encoded = _encode_all(encode, len(named), workers)
+    if host is not None:
+        # every rank encoded the segments it owns: exchange them
+        mine = {i: e for i, e in enumerate(encoded) if plan_of.get(i) is not None and plan_of[i].sharded}
+        everyone = [None] * _dist().process_count()
+        torch.distributed.all_gather_object(everyone, mine)
+        for i in mine:
+            encoded[i] = sorted(
+                (s for part in everyone for s in part[i]), key=lambda s: s.start
+            )
+    fields = {}
+    for i, (name, leaf) in enumerate(named):
+        plan = plan_of.get(i)
+        if plan is None:
+            fields[name] = encoded[i]
+            continue
+        fields[name] = ShardedCompressedField(
+            _sh.field_codec(plan.selection.codec, encoded[i]),
+            tuple(int(s) for s in leaf.shape), _device.dtype_name(leaf),
+            plan.view_shape, encoded[i], plan.selection,
+        )
     return CompressedTree(fields=fields, treedef=treedef)
 
 
 def decompress_pytree(ct: CompressedTree, *, device=None) -> Any:
     """Invert `compress_pytree`: every lossy leaf reconstructs within its
     bound, every raw leaf bit for bit. Leaves come back as tensors on
-    `device` (default the GPU), in their recorded dtype and shape."""
+    `device` (default the GPU), in their recorded dtype and shape; a
+    sharded field reassembles from its segments on any device count (the
+    elastic-restore contract of DESIGN.md §6)."""
+    from . import sharded as _sh
+
     dev = _device.resolve(device)
-    leaves = [decompress(cf, device=dev) for cf in ct.fields.values()]
+    leaves = []
+    for cf in ct.fields.values():
+        if isinstance(cf, ShardedCompressedField):
+            view = _sh.decode_segments(cf.view_shape, cf.segments)
+            arr = view.reshape(cf.shape).astype(np.dtype(cf.dtype))
+            leaves.append(torch.from_numpy(arr).to(dev))
+        else:
+            leaves.append(decompress(cf, device=dev))
     return _pytree.unflatten(ct.treedef, leaves)
 
 
@@ -365,6 +498,7 @@ __all__ = [
     "CompressedTree",
     "Policy",
     "PolicySet",
+    "ShardedCompressedField",
     "compress",
     "compress_pytree",
     "compression_ratio",

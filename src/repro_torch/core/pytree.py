@@ -120,6 +120,26 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
+def flatten_up_to(treedef: TreeDef, tree) -> list:
+    """The subtrees of `tree` at the leaf positions of `treedef` (whose
+    structure `tree` extends), in order: `jax.tree_util`'s
+    ``treedef.flatten_up_to``. A None there is a value, not an empty node."""
+    out: list = []
+
+    def walk(td: TreeDef, node) -> None:
+        if td.kind is None:
+            out.append(node)
+            return
+        found = _children(node)
+        if found is None or len(found[1]) != len(td.children):
+            raise ValueError(f"flatten_up_to: {type(node).__name__} does not match {td.kind}")
+        for child, kid in zip(td.children, found[1]):
+            walk(child, kid)
+
+    walk(treedef, tree)
+    return out
+
+
 def leaves(tree) -> list:
     """The leaves of `tree` in the reference's order."""
     return [leaf for _, leaf in flatten_with_path(tree)[0]]

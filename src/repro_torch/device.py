@@ -80,6 +80,12 @@ def from_raw_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
     return t.view(spec[0]) if spec else t
 
 
+def torch_dtype(dtype: str) -> torch.dtype:
+    """The torch dtype of a recorded dtype name ("float32", "bfloat16")."""
+    spec = _NUMPY_ABSENT.get(dtype)
+    return spec[0] if spec else torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
 def itemsize(dtype: str) -> int:
     """Bytes per value of a recorded dtype name, numpy's or torch's."""
     spec = _NUMPY_ABSENT.get(dtype)

@@ -1,3 +1,5 @@
-"""repro_torch.launch — command-line drivers (`serve`, `train`), in
-PyTorch. The reference's dry-run and multi-host launchers are not ported
-yet (ROADMAP queue A item 14)."""
+"""repro_torch.launch — command-line drivers (`serve`, `train`), the mesh
+builders (`mesh`), the multi-process job runner (`mhrun`) and the
+sharded-checkpoint dryrun (`shardckpt`), in PyTorch. The reference's
+dry-run launcher and the mesh rules of `serve`/`train` are ROADMAP queue A
+item 14b."""

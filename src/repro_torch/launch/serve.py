@@ -18,7 +18,7 @@ On a machine without a GPU, at the reduced smoke size:
 
 Parameters are drawn from a `torch.Generator` seeded 0 on the device. The
 reference's mesh activation is a single-device no-op and is left out
-(scale-out is ROADMAP queue A item 14).
+(compute under a mesh is ROADMAP queue A item 14b).
 """
 
 from __future__ import annotations

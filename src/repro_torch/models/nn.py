@@ -89,6 +89,18 @@ def init_tree(tree: Any, generator: torch.Generator, *, device=None) -> Any:
     return tree_map(lambda p: init_param(p, generator, dev), tree)
 
 
+def abstract_tree(tree: Any) -> Any:
+    """Shapes and dtypes with no storage (meta tensors): the layout rules'
+    `abstract` argument and dry runs."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), tree)
+
+
+def axes_tree(tree: Any) -> Any:
+    """The logical-axis tree matching the params (for the layout rules of
+    `runtime/sharding.py`)."""
+    return tree_map(lambda p: p.axes, tree)
+
+
 def _reference_leaf(a, dev: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: numpy has no bfloat16
@@ -129,8 +141,8 @@ def layer(tree: Any, i: int) -> Any:
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    """Activation sharding constraint to logical axes: a no-op on one
-    device (the mesh rules are ROADMAP queue A item 14)."""
+    """Activation sharding constraint to logical axes: a no-op (compute
+    under a mesh is ROADMAP queue A item 14b)."""
     return x
 
 

@@ -193,6 +193,25 @@ def test_restore_within_bound_raw_bit_for_bit(tmp_path):
     assert tree["lr"].dtype == torch.float64 and float(tree["lr"]) == 3e-4
 
 
+def test_restore_tree_decodes_only_the_templates_fields(tmp_path, monkeypatch):
+    """A flat step restored into a template of some of its leaves decodes
+    those alone, each equal to the whole `restore()`'s."""
+    port, _ = _trees()
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path), policy=POLICIES["accuracy"][0]), **CPU)
+    mgr.save(0, port)
+    lossy = {fl["name"] for fl in _manifest(str(tmp_path), 0)["fields"]
+             if fl["codec"] in ("sz", "zfp")}
+    assert {"w", "vol"} <= lossy
+    _, whole = mgr.restore()
+    decoded = []
+    real = p_sel.decompress
+    monkeypatch.setattr(p_sel, "decompress", lambda cf, **kw: decoded.append(cf.shape) or real(cf, **kw))
+    step, tree = mgr.restore_tree({"w": port["w"], "ids": port["ids"], "lr": port["lr"]})
+    assert step == 0 and decoded == [tuple(port["w"].shape)]
+    for name in ("w", "ids", "lr"):
+        assert torch.equal(tree[name], whole[name]), name
+
+
 def test_target_mode_rows_record_quality(tmp_path):
     port, _ = _trees()
     pol = PolicySet(default=Policy.fixed_accuracy(eb_rel=1e-3),
@@ -288,19 +307,55 @@ def test_legacy_kwargs_warn_and_map_onto_a_policy(tmp_path):
         CheckpointConfig(str(tmp_path), policy=Policy.fixed_accuracy(), eb_rel=1e-3)
 
 
-def test_not_ported_layouts_raise_naming_item_14(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CheckpointManager(CheckpointConfig(str(tmp_path), sharded=True), **CPU)
-    mgr = CheckpointManager(CheckpointConfig(str(tmp_path / "a")), **CPU)
-    mgr.save(0, {"w": _arrays()["w"]})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mgr.restore_tree({"w": 0}, shardings={"w": None})
-    d = str(tmp_path / "a" / "step_000000000")
-    man = _manifest(str(tmp_path / "a"), 0)
-    with open(os.path.join(d, "manifest.json"), "w") as f:
-        json.dump(dict(man, version=2, layout="segments"), f)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mgr.restore()
+@pytest.fixture
+def one_rank_job():
+    """A one-rank gloo job in this process (a mesh needs a process group)."""
+    dist.initialize("gloo", master_port=0, rank=0, world_size=1)
+    yield
+    dist.shutdown()
+
+
+def test_not_ported_layouts_raise_naming_item_14(tmp_path, one_rank_job):
+    """Item 14a is ported: ``sharded=True`` saves the segment layout (plain
+    tensors ride one gathered segment each), the reference reads it, a v2
+    segments manifest restores, and `restore_tree(shardings=)` places the
+    leaves on a one-rank mesh as DTensors. Compute under a mesh (14b) still
+    raises naming its item."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import sharding as rsh
+
+    d = str(tmp_path / "s")
+    tree = {"w": _arrays()["w"], "ids": np.arange(64, dtype=np.int32).reshape(8, 8)}
+    mgr = CheckpointManager(
+        CheckpointConfig(d, sharded=True, policy=Policy.fixed_accuracy(eb_rel=1e-3)), **CPU
+    )
+    mgr.save(0, tree)
+    man = _manifest(d, 0)
+    assert man["version"] == 3 and man["layout"] == "segments" and man["hosts"] == [0]
+    assert {f["name"]: len(f["segments"]) for f in man["fields"]} == {"ids": 1, "w": 1}
+    _, got = mgr.restore()
+    _, ref = RManager(RConfig(d)).restore()
+    for name in tree:
+        np.testing.assert_array_equal(got[name].numpy(), ref[name])
+    np.testing.assert_array_equal(got["ids"].numpy(), tree["ids"])
+    v2 = dict(man, version=2)
+    v2.pop("layout"), v2.pop("policy")
+    with open(os.path.join(d, "step_000000000", "manifest.json"), "w") as f:
+        json.dump(v2, f)
+    _, again = mgr.restore()
+    for name in tree:
+        assert torch.equal(again[name], got[name])
+    mesh = make_local_mesh(device="cpu")
+    shardings = {"w": rsh.NamedSharding(mesh, rsh.spec_to_placements(mesh, ("data", None))),
+                 "ids": None}
+    _, placed = mgr.restore_tree(tree, shardings=shardings)
+    assert isinstance(placed["w"], DTensor) and placed["w"].device_mesh is mesh
+    assert torch.equal(placed["w"].to_local(), got["w"])
+    assert not isinstance(placed["ids"], DTensor) and torch.equal(placed["ids"], got["ids"])
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        rsh.activate(mesh, rsh.TRAIN_RULES)
 
 
 def test_without_cuda_the_default_device_raises(tmp_path):

@@ -254,7 +254,8 @@ def test_legacy_mode_string_solves_the_same():
 
 def test_warm_cache_raises_naming_item_8():
     """The warm path (item 8) is ported: a cache replays the cold solve and
-    the cold bytes; the shard-local engine (item 14) still raises."""
+    the cold bytes; `compress_pytree(sharded=True)` (item 14a) on plain
+    tensors takes the gather path and gives the unsharded bytes."""
     x = FIELDS["atm/ATM_00"]
     cache = DecisionCache()
     cold = solve_many([x], Policy.fixed_psnr(60.0), device="cpu")
@@ -267,8 +268,11 @@ def test_warm_cache_raises_naming_item_8():
         got = compress_pytree({"a": x}, Policy.fixed_psnr(60.0), cache=tree_cache, device="cpu")
         assert got.fields["a"].data == want.fields["a"].data
     assert tree_cache.events == {"a": "hit"}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        compress_pytree({"a": x}, Policy.fixed_psnr(60.0), sharded=True, device="cpu")
+    sharded = compress_pytree({"a": x}, Policy.fixed_psnr(60.0), sharded=True, device="cpu")
+    segs = sharded.fields["a"].segments
+    assert [(s.start, s.stop) for s in segs] == [((0, 0), tuple(x.shape))]
+    assert sharded.fields["a"].codec == want.fields["a"].codec
+    assert segs[0].data == want.fields["a"].data
     with pytest.raises(ValueError, match="repro_torch.core.solve_many"):
         select_many([x], policy=Policy.fixed_psnr(60.0), device="cpu")
 

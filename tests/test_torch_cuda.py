@@ -1115,3 +1115,43 @@ def test_zoo_train_step_on_card_tracks_cpu(cuda_device, name):
         assert a.device.type == "cuda"
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-5 * float(b.abs().max()) + 2 * wm["lr"], err
+
+
+def test_sharded_two_ranks_on_card(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (`launch/mhrun.py`): shard-local
+    decisions equal the unsharded `select_many` on the card (samples
+    exactly, stats to the golden tolerances), each rank's SZ segments run
+    K1 (2-D) and K2 (3-D) on the card, and every segment decodes within eb.
+    A gather-path field under `compress_pytree(sharded=True,
+    device_encode=True)` with no device given is encoded by K1 on every
+    rank: its host copy goes to the card, not to the CPU coder."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    _build.build()
+    payloads = W.run_job("card", 2, tmp_path, timeout_s=300.0)
+    launched = {"lorenzo2d_encode": 0, "lorenzo3d_encode": 0}
+    for p in payloads:
+        assert p["backend"] == "gloo" and all(d.startswith("cuda") for d in p["device"])
+        for name, rec in p["samples"].items():
+            assert rec["equal"] and rec["path"] == "shard-local", (name, rec)
+            st = p["stats"][name]
+            assert st["codec"] == rec["codec"], name
+            assert abs(st["eb_sz"] - rec["eb_sz"]) <= 1e-5 * rec["eb_sz"], name
+            assert abs(st["br_sz"] - rec["br_sz"]) <= 5e-3, name
+        for seg, (codec, err, eb) in p["segments"].items():
+            assert codec in ("sz", "zfp") and err <= eb, (seg, codec, err, eb)
+        for name in launched:
+            launched[name] += p["launches"][name]
+    assert payloads[0]["samples"] == payloads[1]["samples"]
+    assert all(n >= 1 for n in launched.values()), launched
+    # every rank encodes the gathered field (each holds the whole tree)
+    g0, g1 = payloads[0]["gather"], payloads[1]["gather"]
+    for g in (g0, g1):
+        assert g["path"] == "gather" and g["codec"] == "sz", g
+        assert g["launches"]["lorenzo2d_encode"] >= 1, g
+    assert g0["err"] <= g0["eb"] and g1["err"] == g0["err"], (g0, g1)
+

@@ -288,10 +288,10 @@ def test_policy_set_rejected_by_compress():
     (lambda t: p_api.compress_pytree(t, sharded=True, device="cpu"), "item 14"),
 ])
 def test_not_yet_ported_arguments_raise(call, item):
-    """The shard-local engine (item 14) raises naming its ROADMAP item; the
-    target modes (item 7) and the warm path (item 8) are ported and
-    compress."""
-    if item in ("item 7", "item 8"):
+    """The target modes (item 7), the warm path (item 8) and the
+    shard-local engine (item 14a; plain tensors take its gather path) are
+    ported and compress."""
+    if item in ("item 7", "item 8", "item 14"):
         out = call({"a": _field()})
         cf = out.fields["a"] if isinstance(out, p_api.CompressedTree) else out
         assert cf.codec in ("sz", "zfp") and cf.selection is not None
