@@ -149,7 +149,21 @@ phase that goes wrong:
    within eb; smollm-360m's params and AdamW moments laid out by
    `TRAIN_RULES`, saved raw and restored under (1, 4) bit for bit; and
    K1/K2 at the shard shapes (`[sharded-kernels]`);
-15. one JSON line with every kernel's launches on its path, error, times,
+15. serving under a mesh (`[mesh-serve]`, after `[sharded]`):
+   phi4-mini-3.8b at full width and depth served unsharded on the card
+   (`launch.serve.run_static`: a prefill of 4 x 64 tokens and 16 greedy
+   decode steps), then by four ranks over gloo on a (2, 2) ('data',
+   'model') mesh through `run_static(mesh=)` under `SERVE_RULES` (params
+   drawn from the same generator, each rank keeping its box; the cache
+   laid out by `cache_sharding`): the prefill and 8 decode steps fed the
+   unsharded tokens, each step's logits within `MESH_SERVE_RTOL` of
+   max|logit| of the unsharded run's, every param and cache leaf on its
+   rules' placements, the gathered cache within the same bound; then 8
+   greedy steps (the tokens that differ printed with the unsharded top-2
+   margin); prefill and decode ms beside the unsharded run's, the
+   collectives of a prefill and of a decode step by kind, one decode step
+   traced on rank 0, the peak memory of each rank. No kernel runs here;
+16. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -170,8 +184,8 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 `--zoo` only the phases of 13, `--sharded` only the phase of 14 (with the
-fields it needs), and `--train-profile` traces three full-width train
-steps (`train_profile`).
+fields it needs), `--mesh-serve` only the phase of 15, and
+`--train-profile` traces three full-width train steps (`train_profile`).
 """
 
 from __future__ import annotations
@@ -3378,13 +3392,304 @@ def sharded_only(torch, np, dev) -> dict:
     return {"launches": phase_sharded(torch, np, dev, atm, hurricane, card_line())}
 
 
+# ---------------------------------------------------------------------------
+# [mesh-serve]: the dense decoder served under SERVE_RULES, 4 ranks
+# ---------------------------------------------------------------------------
+
+#: phi4-mini-3.8b at full width and depth on a (2, 2) ('data', 'model')
+#: mesh of 4 ranks sharing the card over gloo; a prefill of 4 x 64 tokens,
+#: 8 decode steps fed the unsharded run's greedy tokens, then 8 greedy ones
+MESH_SERVE_ARCH, MESH_SERVE_MESH, MESH_SERVE_RANKS = "phi4-mini-3.8b", (2, 2), 4
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_FORCED, MESH_SERVE_FREE = 4, 64, 8, 8
+#: max(2e-2, d) of max|logit| per step, d the reference's own distance
+#: between its sharded and unsharded bfloat16 runs of the reduced model on
+#: these meshes (0.0096-0.0104, tests/test_torch_mesh.py)
+MESH_SERVE_RTOL = 2e-2
+MESH_SERVE_TIMEOUT_S = 600.0
+
+
+def mesh_serve_dir() -> Path:
+    return ROOT / "build" / "mesh_serve"
+
+
+def _mesh_serve_args(device: str, arch: str, smoke: bool):
+    from repro_torch.launch import serve
+
+    return serve.parse_args(["--arch", arch, "--device", device, "--batch", str(MESH_SERVE_BATCH),
+                             "--prompt-len", str(MESH_SERVE_PROMPT),
+                             "--gen", str(1 + MESH_SERVE_FORCED + MESH_SERVE_FREE)]
+                            + (["--smoke"] if smoke else []))
+
+
+def _margin(np, row) -> float:
+    top = np.partition(np.asarray(row, np.float64), -2)[-2:]
+    return float(top[1] - top[0])
+
+
+def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: bool = False) -> dict:
+    """`[mesh-serve]`: `arch` served unsharded on the card by
+    `launch.serve.run_static` (prefill of 4 x 64, 16 greedy decode steps),
+    its last-position logits, tokens and cache kept on the host; then the
+    card freed and four ranks (`launch/mhrun.py`, gloo) serving it through
+    `run_static(mesh=)` on a (2, 2) ('data', 'model') mesh under
+    `SERVE_RULES`, params drawn from the same generator and kept by box:
+    the same prefill, 8 decode steps fed the unsharded greedy tokens
+    (every step's logits within `MESH_SERVE_RTOL` of max|logit| of the
+    unsharded step's), then 8 greedy steps (the tokens that differ printed
+    with the unsharded top-2 margin). Every param and cache leaf must keep
+    the placements the rules give, and the gathered cache's rows written
+    by the forced steps must equal the unsharded cache's within the same
+    bound. Prints prefill and decode ms (the maximum over ranks) beside the
+    unsharded run's, the collectives of one prefill and one decode step by
+    kind, and the peak memory of each rank. No kernel of K1-K6 runs here."""
+    import shutil
+
+    from repro_torch.launch import mhrun, serve
+
+    free_card(torch)
+    wd = mesh_serve_dir()
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    args = _mesh_serve_args(dev.type, arch, smoke)
+    cfg, model, params = serve.build(args)
+    n_params = sum(a.numel() for a in _leaves(params))
+    base = serve.run_static(args, cfg, model, params, keep=True)
+    base_ms = dict(prefill_ms=base["prefill_s"] * 1e3,
+                   decode_ms_per_step=base["decode_s"] * 1e3 / (args.gen - 1))
+    np.save(wd / "tokens.npy", base["tokens"])
+    np.save(wd / "logits.npy", np.stack([t.numpy() for t in base["logits"]]))
+    torch.save({k: v.cpu() for k, v in base["cache"]["blocks"].items()}, wd / "cache.pt")
+    del model, params, base["cache"]
+    free_card(torch)
+    t0 = time.perf_counter()
+    results = mhrun.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-worker"], MESH_SERVE_RANKS,
+        scenario="mesh_serve", backend="gloo", timeout_s=MESH_SERVE_TIMEOUT_S,
+        workdir=str(wd / "mhrun"), extra_env={"OMP_NUM_THREADS": "2"},
+        args=dict(arch=arch, smoke=smoke, device=dev.type, dir=str(wd)),
+    )
+    job_s = time.perf_counter() - t0
+    payloads = mhrun.require_success(results)
+    p0 = payloads[0]
+    steps = 1 + MESH_SERVE_FORCED
+    rel = p0["rel"]
+    for p in payloads:
+        check(p["tokens"] == p0["tokens"], f"rank {p['rank']} holds other tokens")
+        check(not p["param_misplaced"], f"rank {p['rank']}: params off their rules' placements: "
+              f"{p['param_misplaced'][:4]}")
+        check(not p["cache_misplaced"], f"rank {p['rank']}: cache off cache_sharding's placements: "
+              f"{p['cache_misplaced']}")
+    check(len(rel) == steps, f"{len(rel)} logits compared, want {steps}")
+    for i, d in enumerate(rel):
+        check(d <= MESH_SERVE_RTOL, f"step {i}: sharded logits {d:.4g} of max|logit| off the "
+              f"unsharded run's (bound {MESH_SERVE_RTOL})")
+    for k, d in p0["cache_rel"].items():
+        check(d <= MESH_SERVE_RTOL, f"cache {k}: {d:.4g} of max|cache| off the unsharded cache")
+    want = np.load(wd / "tokens.npy")
+    logits = np.load(wd / "logits.npy", mmap_mode="r")
+    got = np.asarray(p0["tokens"])
+    differ = [dict(row=int(r), step=int(c), sharded=int(got[r, c]), unsharded=int(want[r, c]),
+                   unsharded_top2_margin=_margin(np, logits[c, r]))
+              for r, c in zip(*np.nonzero(got != want))]
+    log("mesh-serve", json.dumps(dict(
+        arch=arch, params=n_params, mesh=p0["mesh"], backend=p0["backend"], ranks=len(payloads),
+        job_s=job_s, rel_by_step=rel, bound=MESH_SERVE_RTOL, cache_rel=p0["cache_rel"],
+        placements_ok=True, leaves=p0["leaves"], card=card)))
+    log("mesh-serve", json.dumps(dict(tokens_differ=differ, forced_steps=MESH_SERVE_FORCED,
+                                      free_steps=MESH_SERVE_FREE)))
+    log("mesh-serve", json.dumps(dict(
+        prefill_ms=max(p["prefill_ms"] for p in payloads),
+        decode_ms_per_step=max(p["decode_ms"] for p in payloads),
+        prefill_ms_by_rank=[p["prefill_ms"] for p in payloads],
+        decode_ms_by_rank=[p["decode_ms"] for p in payloads],
+        unsharded=base_ms, collectives_prefill=p0["comm_prefill"],
+        collectives_decode_step=p0["comm_decode"],
+        peak_gib_by_rank=[p["peak_gib"] for p in payloads], card=card)))
+    if p0["trace"] is not None:
+        log("mesh-serve", json.dumps(dict(traced_decode_step_rank0=p0["trace"], card=card)))
+    shutil.rmtree(wd, ignore_errors=True)
+    return dict(rel=rel, differ=len(differ))
+
+
+def _mesh_step_trace(torch, step, traced: bool) -> dict | None:
+    """One sharded decode step, traced by `torch.profiler` where `traced`
+    (the other ranks run it plain, meeting it in its collectives): wall
+    ms, device busy ms and idle share, kernels, the host ms of the gloo
+    collectives (the ops named all_reduce, allreduce, allgather or wait),
+    and the 10 ops with the most host self time."""
+    if not traced:
+        step()
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    avgs = prof.key_averages()
+    comm = [e for e in avgs if any(w in e.key.lower()
+                                   for w in ("all_reduce", "allreduce", "allgather", "wait"))]
+    top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+                kernels=len(kernels),
+                collective_host_ms={e.key: e.self_cpu_time_total / 1e3 for e in comm},
+                top_host_self_ms={e.key: e.self_cpu_time_total / 1e3 for e in top},
+                top_calls={e.key: e.count for e in top})
+
+
+#: redistributions of CUDA tensors over gloo: DTensor's own all-reduce of
+#: a bfloat16 pending sum and all-gather of a split (which the path never
+#: asks DTensor for), and the split gathered as `sharding.redistribute`
+#: does it (`dist.all_gather` staged through the host): name -> (dtype,
+#: the local shard's placement over 'model')
+GLOO_PROBES = {"all_reduce_bf16": ("bfloat16", "partial"), "all_gather_f32": ("float32", "shard"),
+               "staged_all_gather_f32": ("float32", "staged")}
+
+
+def gloo_probe_worker(spec: dict, rank: int) -> dict:
+    """One rank of a `GLOO_PROBES` case on a (1, 2) mesh: a pending sum or
+    a split over 'model' redistributed to Replicate by DTensor itself."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.runtime import sharding as rsh
+
+    dtype, kind = GLOO_PROBES[spec["args"]["case"]]
+    mesh = make_emulated_mesh((1, 2))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if kind == "partial":
+        local = torch.full((4, 8), 0.25 * (rank + 1), dtype=getattr(torch, dtype), device=dev)
+        placements, want = (Replicate(), Partial()), torch.full((4, 8), 0.75)
+    else:  # a split over 'model', gathered by DTensor or by the port
+        local = torch.arange(8, dtype=getattr(torch, dtype), device=dev).reshape(2, 4) + 8 * rank
+        placements, want = (Replicate(), Shard(0)), torch.arange(16.0).reshape(4, 4)
+    x = DTensor.from_local(local, mesh, placements, run_check=False)
+    if kind == "staged":
+        got = rsh.redistribute(x, (Replicate(), Replicate())).to_local()
+    else:
+        got = x.redistribute(mesh, (Replicate(), Replicate())).to_local()
+    return {"equal": bool(torch.equal(got.float().cpu(), want))}
+
+
+def gloo_cuda_probes() -> dict:
+    """Each `GLOO_PROBES` case as its own 2-rank job on the card (a crash
+    ends only that job): "ok", "wrong values", the error, or the exit
+    code of a rank that died."""
+    from repro_torch.launch import mhrun
+
+    out = {}
+    for case in GLOO_PROBES:
+        res = mhrun.run([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-worker"], 2,
+                        scenario="gloo_probe", backend="gloo", timeout_s=120.0,
+                        workdir=str(mesh_serve_dir() / f"probe_{case}"), args={"case": case})
+        bad = [r for r in res if not r.ok]
+        if not bad:
+            out[case] = "ok" if all(r.result["equal"] for r in res) else "wrong values"
+        else:
+            r = bad[0]
+            out[case] = (r.result or {}).get("error") or f"rank {r.process_id} died, exit {r.returncode}"
+    return out
+
+
+def mesh_serve_worker(spec: dict, rank: int) -> dict:
+    """One rank of `[mesh-serve]` (`phase_mesh_serve` says what it does)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.launch.mesh import describe_mesh, make_emulated_mesh
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+    from repro_torch.runtime.steps import make_decode_step
+
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    a = spec["args"]
+    wd = Path(a["dir"])
+    cuda = a["device"] == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_emulated_mesh(MESH_SERVE_MESH, device=a["device"])
+    args = _mesh_serve_args(a["device"], a["arch"], a["smoke"])
+    cfg, model, params = serve.build(args, mesh)
+    desc = model.desc()
+    flat = _flat(params)
+    rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh, mnn.abstract_tree(desc)))
+    param_misplaced = [k for k, v in flat.items() if tuple(v.placements) != tuple(rules[k].placements)]
+    teacher = np.load(wd / "tokens.npy")[:, :MESH_SERVE_FORCED]
+    res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True)
+    cache = res["cache"]
+    lay = rsh.cache_sharding(model.cache_desc(args.batch, args.prompt_len + args.gen), mesh,
+                             args.batch, {cfg.n_kv_heads, cfg.n_heads})
+    cache_misplaced = [k for k, v in _flat(cache).items()
+                       if tuple(v.placements) != tuple(_flat(lay)[k].placements)]
+    rows = args.prompt_len + MESH_SERVE_FORCED  # written from the same tokens in both runs
+    whole = {k: dist.gather(v, dst=0) for k, v in cache["blocks"].items()}
+    rel, cache_rel = [], {}
+    if rank == 0:
+        base = np.load(wd / "logits.npy", mmap_mode="r")
+        for i in range(1 + MESH_SERVE_FORCED):
+            want = np.asarray(base[i])
+            rel.append(float(np.abs(res["logits"][i].numpy() - want).max() / np.abs(want).max()))
+        base_cache = torch.load(wd / "cache.pt")
+        for k, v in whole.items():
+            w = base_cache[k][:, :, :rows].to(torch.float32)
+            cache_rel[k] = float((v[:, :, :rows].to(torch.float32) - w).abs().max() / w.abs().max())
+    # on a fresh cache, not timed: the collectives of one prefill and of one
+    # decode step (the argmax included), then one decode step traced on rank 0
+    decode = make_decode_step(model)
+    with rsh.activate(mesh, rsh.SERVE_RULES):
+        c2 = model.init_cache(args.batch, args.prompt_len + 2)
+        tok = dist.put_global(
+            torch.as_tensor(np.repeat(teacher[:, :1], args.prompt_len, axis=1), dtype=torch.int32,
+                            device=model.device),
+            batch_shardings({"t": teacher}, mesh, args.batch)["t"])
+        with CommDebugMode() as comm_p:
+            _, c2 = model.forward(params, {"tokens": tok}, cache=c2)
+        with CommDebugMode() as comm_d:
+            nxt, c2 = decode(params, tok[:, :1], c2)
+        trace = _mesh_step_trace(torch, lambda: decode(params, nxt, c2), rank == 0 and cuda)
+    return dict(trace=trace,
+        rank=rank, backend=dist.backend(), mesh=describe_mesh(mesh)["shape"],
+        leaves=len(flat) + len(_flat(cache)), param_misplaced=param_misplaced,
+        cache_misplaced=cache_misplaced, tokens=res["tokens"].tolist(), rel=rel, cache_rel=cache_rel,
+        prefill_ms=res["prefill_s"] * 1e3, decode_ms=res["decode_s"] * 1e3 / (args.gen - 1),
+        comm_prefill={str(k): v for k, v in comm_p.get_comm_counts().items()},
+        comm_decode={str(k): v for k, v in comm_d.get_comm_counts().items()},
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+    )
+
+
+def mesh_serve_only(torch, np, dev) -> dict:
+    """`[mesh-serve]` alone, then `gloo_cuda_probes` (not in the whole
+    smoke: the path takes neither redistribution)."""
+    out = phase_mesh_serve(torch, np, dev, card_line())
+    mesh_serve_dir().mkdir(parents=True, exist_ok=True)
+    out["gloo_cuda"] = gloo_cuda_probes()
+    log("mesh-serve", json.dumps(dict(gloo_cuda=out["gloo_cuda"])))
+    import shutil
+
+    shutil.rmtree(mesh_serve_dir(), ignore_errors=True)
+    return out
+
+
 def main() -> int:
-    if "--sharded-worker" in sys.argv:
-        # one rank of [sharded], started by launch/mhrun.py
+    if "--sharded-worker" in sys.argv or "--mesh-serve-worker" in sys.argv:
+        # one rank of [sharded] or [mesh-serve], started by launch/mhrun.py
         sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
         from repro_torch.launch import mhrun
 
-        return mhrun.worker_main(sys.argv[-1], {"sharded": sharded_worker})
+        return mhrun.worker_main(sys.argv[-1], {"sharded": sharded_worker,
+                                                "mesh_serve": mesh_serve_worker,
+                                                "gloo_probe": gloo_probe_worker})
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bot-times", action="store_true",
                         help="only build the kernels and print K5/K6 times (bot_times) as JSON")
@@ -3416,6 +3721,9 @@ def main() -> int:
                         "phases (zoo_only)")
     parser.add_argument("--sharded", action="store_true",
                         help="only run the four-rank shard-local phase (sharded_only)")
+    parser.add_argument("--mesh-serve", action="store_true",
+                        help="only run the four-rank serving phase under SERVE_RULES "
+                        "(mesh_serve_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -3457,6 +3765,7 @@ def main() -> int:
                           (args.train, train_only),
                           (args.zoo, zoo_only),
                           (args.sharded, sharded_only),
+                          (args.mesh_serve, mesh_serve_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -3486,6 +3795,7 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_sharded(torch, np, dev, atm, hurricane, card).items():
         launches[name] += n
+    phase_mesh_serve(torch, np, dev, card)
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)

@@ -26,10 +26,11 @@ from .selector import (
     select_and_compress,
     select_many,
 )
-from .sz import sz_compress, sz_decompress
+from .sz import SZStats, sz_compress, sz_decompress, sz_stats
 from .zfp import zfp_compress, zfp_decompress
 
 __all__ = [
+    "SZStats",
     "CacheEntry",
     "CompressedField",
     "CompressedTree",
@@ -60,6 +61,7 @@ __all__ = [
     "solve_many",
     "sz_compress",
     "sz_decompress",
+    "sz_stats",
     "zfp_compress",
     "zfp_decompress",
 ]

@@ -1,7 +1,9 @@
 """SZ-style prediction-based error-bounded lossy compressor (paper §2, §5.1):
-the host byte codec.
+the host byte codec and the rate/distortion statistics.
 
-Port of the byte-codec half of `repro.core.sz`. Pipeline: linear
+Port of `repro.core.sz`. `sz_stats` computes the SZ path's exact
+reconstruction, entropy rate and PSNR in torch (float32, as the
+reference's in-graph form). Pipeline: linear
 quantization (delta = 2*eb, float64) -> integer Lorenzo -> canonical
 Huffman. The containers are byte-identical to the reference's: ``SZJ1``
 for the host coder and ``SZJ2`` for streams whose quantization ran on the
@@ -14,10 +16,14 @@ Lorenzo transform is lossless, so the only error is quantization.
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from . import entropy as _entropy
+from .transforms import lorenzo_forward
+from .xla_f32 import _xla_log, _xla_log2
 
 #: symbols: 0 = escape (outlier), 1..2R+1 = residual shifted by R+1
 RESIDUAL_RADIUS = 32767
@@ -25,6 +31,47 @@ RESIDUAL_RADIUS = 32767
 _MAGIC = b"SZJ1"
 #: device-encoded container: the SZJ1 layout, quantized on the device in f32
 DEVICE_MAGIC = b"SZJ2"
+
+
+@dataclass
+class SZStats:
+    bitrate: torch.Tensor      # bits/value (entropy + 0.5 offset + outliers)
+    psnr: torch.Tensor         # actual PSNR of the reconstruction
+    mse: torch.Tensor
+    recon: torch.Tensor        # reconstruction (error <= eb pointwise)
+    outlier_frac: torch.Tensor
+
+
+def sz_stats(x: torch.Tensor, eb, hist_radius: int = RESIDUAL_RADIUS) -> SZStats:
+    """Exact rate/distortion of the SZ path: float32 codes (round half to
+    even) on the 2*eb grid, their Lorenzo residuals' entropy over the
+    2*radius+1 integer bins the reference's `jnp.histogram` takes (residuals
+    clipped into them; those beyond count as outliers at 64 bits), plus the
+    0.5-bit Huffman offset (paper §6.2); the PSNR over the value range."""
+    xf = x.to(torch.float32)
+    delta = 2.0 * torch.as_tensor(eb, dtype=torch.float32, device=xf.device)
+    codes = torch.round(xf / delta)
+    recon = (codes * delta).to(torch.float32)
+    d = lorenzo_forward(codes)
+    clipped = torch.clamp(d, -hist_radius, hist_radius)
+    outlier = torch.abs(d) > hist_radius
+    # unit bins centred on the integers -R..R: bin = residual + R
+    hist = torch.bincount((clipped + hist_radius).reshape(-1).long(),
+                          minlength=2 * hist_radius + 1)
+    p = hist.to(torch.float32) / torch.clamp_min(hist.sum(), 1)
+    ent = -torch.sum(torch.where(p > 0, p * _xla_log2(torch.clamp_min(p, 1e-30)), 0.0))
+    ofrac = torch.mean(outlier.to(torch.float32))
+    bitrate = ent + 0.5 + ofrac * 64.0
+    err = xf - recon
+    mse = torch.mean(torch.square(err))
+    vr = torch.clamp_min(torch.max(xf) - torch.min(xf), 1e-30)
+    ratio = torch.clamp_min(mse, 1e-60) / (vr * vr)
+    psnr = -10.0 * (_xla_log(ratio) * _INV_LN10_F32)
+    return SZStats(bitrate=bitrate, psnr=psnr, mse=mse, recon=recon, outlier_frac=ofrac)
+
+
+#: XLA takes log10 as log(x) * f32(1 / ln 10)
+_INV_LN10_F32 = float(np.float32(1.0 / np.log(10.0)))
 
 
 def _lorenzo_fwd_np(k: np.ndarray) -> np.ndarray:
@@ -114,3 +161,7 @@ def sz_decompress(buf: bytes) -> np.ndarray:
     d[syms == 0] = outliers
     codes = _lorenzo_inv_np(d.reshape(shape))
     return (codes.astype(np.float64) * delta).astype(np.float32)
+
+
+def sz_compressed_bits(buf: bytes) -> int:
+    return 8 * len(buf)

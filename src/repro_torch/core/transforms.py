@@ -36,6 +36,12 @@ def lorenzo_forward(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lorenzo_predict(x: torch.Tensor) -> torch.Tensor:
+    """The Lorenzo *prediction* of each point from its original real
+    neighbours, ``x - lorenzo_forward(x)`` (estimator diagnostics)."""
+    return x - lorenzo_forward(x)
+
+
 def lorenzo_inverse(d: torch.Tensor) -> torch.Tensor:
     """Inverse PBT: inclusive prefix sum along every axis, in `d`'s dtype."""
     out = d

@@ -1,5 +1,5 @@
 """repro_torch.launch — command-line drivers (`serve`, `train`), the mesh
-builders (`mesh`), the multi-process job runner (`mhrun`) and the
-sharded-checkpoint dryrun (`shardckpt`), in PyTorch. The reference's
-dry-run launcher and the mesh rules of `serve`/`train` are ROADMAP queue A
-item 14b."""
+builders (`mesh`), the multi-process job runner (`mhrun`), the
+sharded-checkpoint dryrun (`shardckpt`) and the batch layout of the
+dry-run launcher (`dryrun.batch_shardings`), in PyTorch. The rest of the
+dry-run launcher is ROADMAP queue A item 14d, training under a mesh 14c."""

@@ -16,14 +16,19 @@ On a machine without a GPU, at the reduced smoke size:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke [--continuous]
 
-Parameters are drawn from a `torch.Generator` seeded 0 on the device. The
-reference's mesh activation is a single-device no-op and is left out
-(compute under a mesh is ROADMAP queue A item 14b).
+Parameters are drawn from a `torch.Generator` seeded 0 on the device.
+In a job of more than one rank (`runtime.dist.initialize`), `main` serves
+the static batch under a mesh as the reference does: the production mesh,
+params laid out by `SERVE_RULES` (`place_params`), the prompts by
+`launch.dryrun.batch_shardings` and the cache by `cache_sharding`, all
+as DTensors; `run_static(..., mesh=)` does the same on any mesh (e.g.
+`launch.mesh.make_emulated_mesh((2, 2))`). One rank runs unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -35,8 +40,10 @@ from ..core.decision_cache import DecisionCache
 from ..core.policy import serving_policies
 from ..models import build_model, reduced_for_smoke
 from ..models import nn as rnn
+from ..runtime import dist, sharding
 from ..runtime.batcher import ContinuousBatcher, Request
-from ..runtime.steps import make_decode_step, make_prefill_step
+from ..runtime.steps import greedy, make_decode_step, make_prefill_step
+from .dryrun import batch_shardings
 
 
 def _sync(dev: torch.device) -> None:
@@ -141,39 +148,75 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args):
+def place_params(model, mesh, rules=sharding.SERVE_RULES) -> dict:
+    """The params of `model` from a generator seeded 0 on the model's
+    device, each leaf drawn whole in `init_tree`'s order and kept as this
+    rank's box of its `tree_shardings(rules)` layout: the unsharded draw's
+    values, laid out on `mesh`."""
+    desc = model.desc()
+    shardings = sharding.tree_shardings(rnn.axes_tree(desc), rules, mesh, rnn.abstract_tree(desc))
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    return rnn.init_tree(desc, gen, device=model.device, shardings=shardings)
+
+
+def build(args, mesh=None):
     """(cfg, model, params) for `args`: the config (reduced with --smoke),
-    the model on --device, and parameters from a generator seeded 0."""
+    the model on --device, and parameters from a generator seeded 0 (laid
+    out by `SERVE_RULES` on `mesh` when given)."""
     dev = _device.resolve(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg)
     model = build_model(cfg, device=dev)
+    if mesh is not None:
+        return cfg, model, place_params(model, mesh)
     params = rnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
     return cfg, model, params
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    cfg, model, params = build(args)
+    mesh = None
+    if dist.is_multihost() and not args.continuous:
+        from .mesh import make_production_mesh
+
+        mesh = make_production_mesh(device=args.device)
+    cfg, model, params = build(args, mesh)
     if args.continuous:
         return run_continuous(args, cfg, model, params)
-    return run_static(args, cfg, model, params)
+    return run_static(args, cfg, model, params, mesh=mesh)
 
 
-def run_static(args, cfg, model, params) -> dict:
+def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULES,
+               teacher: np.ndarray | None = None, keep: bool = False) -> dict:
     """A batch of `args.batch` prompts of `args.prompt_len` tokens (and,
     drawn after them from the same generator as in the reference, the
     vision stub's patch embeddings or the encoder-decoder's frames) through
     one prefill, then `args.gen - 1` decode steps on the contiguous cache:
     the tokens, the prefill's seconds and the decode loop's seconds, each
-    timed between synchronizes."""
+    timed between synchronizes.
+
+    With `mesh`, everything runs under `sharding.activate(mesh, rules)`:
+    `params` must be laid out on it (`place_params`); the prompts are laid
+    out by `batch_shardings` and the cache by `cache_sharding`, and the
+    tokens are gathered to every rank at the end. `teacher` (B, n) feeds
+    decode step i < n the token `teacher[:, i]` instead of the previous
+    step's (the greedy tokens are still returned). `keep` adds the
+    last-position logits of the prefill and of every step (``"logits"``,
+    float32 host tensors (B, vocab)) and the final cache (``"cache"``)."""
     dev = model.device
 
     rng = np.random.default_rng(0)
     b = args.batch
-    prompts = torch.as_tensor(rng.integers(1, cfg.vocab, (b, args.prompt_len)),
-                              dtype=torch.int32, device=dev)
+    lay = None if mesh is None else batch_shardings(
+        {"tokens": torch.empty(b, args.prompt_len, device="meta")}, mesh, b)["tokens"]
+
+    def place(tokens) -> torch.Tensor:
+        t = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+        return t if lay is None else dist.put_global(t, lay)
+
+    prompts = place(rng.integers(1, cfg.vocab, (b, args.prompt_len)))
+    forced = [] if teacher is None else [place(teacher[:, i:i + 1]) for i in range(teacher.shape[1])]
     max_len = args.prompt_len + args.gen
     batch = {"tokens": prompts}
     if cfg.frontend == "vision":
@@ -186,28 +229,47 @@ def run_static(args, cfg, model, params) -> dict:
             device=dev)
 
     prefill = make_prefill_step(model)
-    decode = make_decode_step(model, sample=args.sample)
+    step = make_decode_step(model, sample=args.sample)
+    kept: list = []
+
+    def decode(params, tokens, cache, generator):
+        if not keep:
+            return step(params, tokens, cache, generator)
+        logits, cache = model.forward(params, {"tokens": tokens}, cache=cache)
+        kept.append(logits[:, -1])
+        return greedy(logits[:, -1]), cache
+
     generator = torch.Generator(device=dev).manual_seed(1)
-    cache = model.init_cache(b, max_len)
-    _sync(dev)
-    t0 = time.time()
-    logits, cache = prefill(params, batch, cache)
-    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    _sync(dev)
-    t_prefill = time.time() - t0
-    toks = [nxt]
-    t0 = time.time()
-    for _ in range(args.gen - 1):
-        nxt, cache = decode(params, nxt, cache, generator if args.sample else None)
-        toks.append(nxt)
-    _sync(dev)
-    t_decode = time.time() - t0
-    out = torch.cat(toks, dim=1).cpu().numpy()
+    if keep and args.sample:
+        raise ValueError("run_static(keep=True) keeps greedy runs' logits only")
+    with sharding.activate(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        cache = model.init_cache(b, max_len)
+        _sync(dev)
+        t0 = time.time()
+        logits, cache = prefill(params, batch, cache)
+        nxt = greedy(logits[:, -1])
+        if keep:
+            kept.append(logits[:, -1])
+        _sync(dev)
+        t_prefill = time.time() - t0
+        toks = [nxt]
+        t0 = time.time()
+        for i in range(args.gen - 1):
+            fed = forced[i] if i < len(forced) else nxt
+            nxt, cache = decode(params, fed, cache, generator if args.sample else None)
+            toks.append(nxt)
+        _sync(dev)
+        t_decode = time.time() - t0
+        out = dist.gather(torch.cat(toks, dim=1)).numpy()  # a collective under a mesh
+        result = {"tokens": out, "prefill_s": t_prefill, "decode_s": t_decode}
+        if keep:
+            result["logits"] = [dist.gather(t).to(torch.float32) for t in kept]
+            result["cache"] = cache
     tput = b * (args.gen - 1) / max(t_decode, 1e-9)
     print(f"[serve] prefill {args.prompt_len} toks x{b}: {t_prefill:.2f}s; "
           f"decode {args.gen - 1} steps: {t_decode:.2f}s ({tput:.1f} tok/s)")
     print("[serve] sample output ids:", out[0, :16])
-    return {"tokens": out, "prefill_s": t_prefill, "decode_s": t_decode}
+    return result
 
 
 if __name__ == "__main__":

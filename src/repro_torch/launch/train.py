@@ -14,8 +14,8 @@ checkpointing, lossy-compressed checkpoints with Algorithm-1 selection,
 resume from the latest checkpoint, error-feedback gradient compression,
 async checkpoint writes. Parameters are drawn from a `torch.Generator`
 seeded 0 on the device. The reference's mesh and sharding rules are a
-single-device no-op here and are left out (compute under a mesh is
-ROADMAP queue A item 14b). The train step updates the params and optimizer state in place
+single-device no-op here and are left out (training under a mesh is
+ROADMAP queue A item 14c). The train step updates the params and optimizer state in place
 (the reference donates them to its jitted step); `async_save` snapshots
 them on the device before the next step runs.
 """

@@ -77,10 +77,10 @@ def apply_attn(
     b, l, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = dense(xn, p["wq"]).reshape(b, l, h, dh)
+    q = nn.split_heads(dense(xn, p["wq"]), h, dh)
     src = xn if memory is None else memory  # the encoder memory is pre-normed
-    k = dense(src, p["wk"]).reshape(b, src.shape[1], hkv, dh)
-    v = dense(src, p["wv"]).reshape(b, src.shape[1], hkv, dh)
+    k = nn.split_heads(dense(src, p["wk"]), hkv, dh)
+    v = nn.split_heads(dense(src, p["wv"]), hkv, dh)
     if memory is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -92,6 +92,9 @@ def apply_attn(
         out = attention(q, k, v, causal=False, window=window)
     elif cache is not None and "ptab" in cache:
         # --- paged KV pool (serving tier, DESIGN.md §9) ---
+        if nn.is_sharded(q):
+            raise NotImplementedError(
+                "the paged KV pool under a mesh: ROADMAP.md queue A, item 14e")
         if l != 1:
             raise ValueError(
                 "paged KV cache is decode-only (L == 1); prefill runs "
@@ -120,6 +123,9 @@ def apply_attn(
         start = torch.clamp(torch.remainder(pos, m_cap), max=m_cap - l)
         rows = start.long() + torch.arange(l, device=x.device)
         ck, cv = cache["k"], cache["v"]
+        if "k_scale" in cache and nn.is_sharded(q):
+            raise NotImplementedError(
+                "the int8 KV cache under a mesh: ROADMAP.md queue A, item 14e")
         if "k_scale" in cache:
             # int8 KV cache: per-(token, head) linear quantization (the
             # paper's Stage-II vector quantization applied to KV residency)
@@ -136,8 +142,8 @@ def apply_attn(
             k_all = ck.to(q.dtype) * cks[..., None].to(q.dtype)
             v_all = cv.to(q.dtype) * cvs[..., None].to(q.dtype)
         else:
-            ck.index_copy_(1, rows, k.to(ck.dtype))
-            cv.index_copy_(1, rows, v.to(cv.dtype))
+            nn.write_rows(ck, rows, k.to(ck.dtype))
+            nn.write_rows(cv, rows, v.to(cv.dtype))
             new_cache = {"k": ck, "v": cv, "len": pos + l}
             k_all, v_all = ck.to(q.dtype), cv.to(q.dtype)
         out = attention(

@@ -25,6 +25,11 @@ its caches live; params and batches are expected there too. A cache's
 tensors (K/V rows, recurrent states) are updated in place by `forward`:
 the returned cache holds the same tensors with the new values written,
 and a new position clock.
+
+Under a mesh (`runtime.sharding.activate`), the dense decoders
+(`TransformerLM` without MoE, MLA or a frontend) take params, tokens and
+caches as DTensors: `init_cache` lays the cache out by
+`runtime.sharding.cache_sharding`. The other families raise there.
 """
 
 from __future__ import annotations
@@ -58,6 +63,19 @@ class BaseLM:
         self.cfg = cfg
         self.device = _device.resolve(device)
 
+    def _mesh_ready(self) -> bool:
+        """Whether this model runs under a mesh (the dense decoders)."""
+        return False
+
+    def _check_mesh(self) -> None:
+        if not self._mesh_ready():
+            raise NotImplementedError(
+                f"{self.cfg.name} ({type(self).__name__}, moe={bool(self.cfg.moe)}, "
+                f"mla={bool(self.cfg.mla)}, frontend={self.cfg.frontend}) under a mesh: "
+                "ROADMAP.md queue A, item 14e")
+        if nn.shard_fn() is None:
+            raise RuntimeError("sharded params run under runtime.sharding.activate(mesh, rules)")
+
     # --- embedding / head -------------------------------------------------
     def _embed_desc(self) -> dict:
         cfg = self.cfg
@@ -75,7 +93,11 @@ class BaseLM:
 
     def _embed(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]].to(_dt(cfg))
+        if nn.is_sharded(params["embed"]):
+            self._check_mesh()
+        # a vocab-split table gives each rank its rows' lookups and zeros
+        # elsewhere: a pending sum, added before the cast
+        x = nn.reduce_partial(nn.embed(params["embed"], batch["tokens"])).to(_dt(cfg))
         if cfg.frontend == "vision" and "patch_embeds" in batch:
             pe = dense(batch["patch_embeds"].to(_dt(cfg)), params["patch_proj"])
             x = torch.cat([pe, x], dim=1)
@@ -85,7 +107,7 @@ class BaseLM:
         cfg = self.cfg
         xn = rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = torch.matmul(xn, head.to(xn.dtype))
+        logits = dense(xn, head)
         return shard(logits.to(torch.float32), "batch", None, "vocab")
 
     # --- losses ------------------------------------------------------------
@@ -104,7 +126,20 @@ class BaseLM:
 
     # --- cache -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int):
-        return _zeros_cache(self.cache_desc(batch, max_len), self.device)
+        """Zeros: plain tensors on the model's device, or under a mesh
+        DTensors laid out by `cache_sharding` (batch over the data dims,
+        the first head-sized dim after it over 'model')."""
+        layout = nn.shard_fn()
+        if layout is None:
+            return _zeros_cache(self.cache_desc(batch, max_len), self.device)
+        self._check_mesh()
+        from ..runtime import sharding
+
+        desc = self.cache_desc(batch, max_len)
+        cfg = self.cfg
+        shardings = sharding.cache_sharding(desc, layout.mesh, batch,
+                                            {cfg.n_kv_heads, cfg.n_heads})
+        return nn.tree_map(lambda s, sh: sharding.zeros(s.shape, s.dtype, sh), desc, shardings)
 
     def decode_step(self, params, tokens, cache):
         return self.forward(params, {"tokens": tokens}, cache=cache)
@@ -130,6 +165,10 @@ class TransformerLM(BaseLM):
 
     def _n_dense(self) -> int:
         return self.cfg.moe.n_dense_layers if self.cfg.moe else 0
+
+    def _mesh_ready(self) -> bool:
+        cfg = self.cfg
+        return not (cfg.moe or cfg.mla or cfg.frontend)
 
     def desc(self):
         cfg = self.cfg
@@ -163,7 +202,8 @@ class TransformerLM(BaseLM):
         x = self._embed(params, batch)
         b, l, _ = x.shape
         steps = torch.arange(l, device=x.device)
-        pos0 = cache["pos"] if cache is not None else 0
+        clock = cache["pos"] if cache is not None else 0
+        pos0 = nn.local_value(clock)  # a replicated clock's value on every rank
         # paged serving cache (DESIGN.md §9): per-slot clocks (B,) + page
         # table, threaded into every layer's cache view
         paged = cache is not None and "page_table" in cache
@@ -177,11 +217,19 @@ class TransformerLM(BaseLM):
                 cl["ptab"] = cache["page_table"]
             return cl
 
+        def run_layer(stack, i, p, x, window=None):
+            cl = layer_cache(stack, i)
+            x, _ = self._block(p, x, positions, cl, window=window)
+            if cl is not None:
+                # a split layer stack's gathered copy goes back to its ranks
+                nn.put_layer(cache[stack], i, {k: cl[k] for k in cache[stack]})
+            return x
+
         nd = self._n_dense()
         # the leading dense layers run first and are not checkpointed, as
         # in the reference
         for i, p in enumerate(nn.unstack(params["dense_blocks"], nd) if nd else []):
-            x, _ = self._block(p, x, positions, layer_cache("dense_blocks", i))
+            x = run_layer("dense_blocks", i, p, x)
         # training: each stacked layer's activations are recomputed in the
         # backward (the reference's jax.checkpoint of the scanned layer)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
@@ -190,11 +238,11 @@ class TransformerLM(BaseLM):
                 x = checkpoint(self._remat_block, p, x, positions, cfg.attn_window,
                                use_reentrant=False)
                 continue
-            x, _ = self._block(p, x, positions, layer_cache("blocks", i), window=cfg.attn_window)
+            x = run_layer("blocks", i, p, x, window=cfg.attn_window)
         new_cache = None
         if cache is not None:
             # the layers wrote their rows into the cache stacks in place
-            new_cache = {"pos": pos0 + l, "blocks": cache["blocks"]}
+            new_cache = {"pos": clock + l, "blocks": cache["blocks"]}
             if nd:
                 new_cache["dense_blocks"] = cache["dense_blocks"]
             if paged:

@@ -9,6 +9,13 @@ optimizer state) across as numpy arrays, so both packages can compute with
 the same weights.
 The layers are plain functions on tensors.
 
+Under a mesh (`runtime.sharding.activate`) the same layers take DTensors:
+the products, norms and pointwise ops run through DTensor's sharding
+propagation, a product whose contraction is split adds its partials in
+float32 over the mesh and rounds once to the compute dtype, and rope and
+attention, which are independent per batch row and per head (the only
+dims the serving rules split there), run on each rank's shards.
+
 Numerics follow the reference: activations in the compute dtype of `x`
 (bfloat16 by default), every weight cast to it at each call (`dense`),
 and float32 for the norm statistics, the RoPE angles, the attention
@@ -55,12 +62,13 @@ def is_desc(x) -> bool:
     return isinstance(x, P)
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """`fn` applied to every leaf of a tree of nested dicts, keys in sorted
-    order (the reference's `jax.tree_util` order)."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """`fn` applied to every leaf of a tree of nested dicts (and the
+    matching leaves of the trees `rest`), keys in sorted order (the
+    reference's `jax.tree_util` order)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
@@ -82,11 +90,21 @@ def init_param(p: P, generator: torch.Generator, device: torch.device) -> torch.
     return x.mul_(scale).to(p.dtype)
 
 
-def init_tree(tree: Any, generator: torch.Generator, *, device=None) -> Any:
+def init_tree(tree: Any, generator: torch.Generator, *, device=None, shardings: Any = None) -> Any:
     """Materialize a descriptor tree into parameters on `device` (default
-    the GPU), drawn from `generator`, which must live on that device."""
+    the GPU), drawn from `generator`, which must live on that device.
+
+    With `shardings` (a matching tree of `runtime.sharding.NamedSharding`s,
+    `tree_shardings`), each leaf is drawn whole, in the same order, and
+    each rank keeps only its box as a DTensor: the values equal the
+    unsharded draw's, and one whole leaf at a time is resident."""
     dev = _device.resolve(device)
-    return tree_map(lambda p: init_param(p, generator, dev), tree)
+    if shardings is None:
+        return tree_map(lambda p: init_param(p, generator, dev), tree)
+    from ..runtime import dist
+
+    return tree_map(lambda p, sh: dist.put_global(init_param(p, generator, dev), sh),
+                    tree, shardings)
 
 
 def abstract_tree(tree: Any) -> Any:
@@ -136,14 +154,131 @@ def unstack(tree: Any, n: int) -> list[Any]:
 
 
 def layer(tree: Any, i: int) -> Any:
-    """Layer `i` of a tree stacked on a leading axis (views, no copy)."""
-    return tree_map(lambda a: a[i], tree)
+    """Layer `i` of a tree stacked on a leading axis: views, no copy, but
+    for a DTensor whose stack is split over the mesh, where it is a copy
+    gathered from the ranks that hold layer `i` (`put_layer` writes it
+    back)."""
+    return tree_map(lambda a: _layer_of(a, i) if is_sharded(a) else a[i], tree)
+
+
+def put_layer(tree: Any, i: int, values: Any) -> None:
+    """After in-place writes to `values = layer(tree, i)`: the ranks that
+    hold layer `i` of a DTensor whose stack is split copy their part of the
+    gathered layer back (views need nothing)."""
+
+    def _put(a, v):
+        if not is_sharded(a) or not _split_dims(a, 0):
+            return
+        start, stop = _box(a)
+        if start[0] <= i < stop[0]:
+            a.to_local()[i - start[0]].copy_(v.to_local())
+
+    tree_map(_put, tree, values)
+
+
+# ---------------------------------------------------------------------------
+# sharding annotation hook (bound by runtime.sharding.activate)
+# ---------------------------------------------------------------------------
+
+_SHARD_FN = None
+
+
+def set_shard_fn(fn) -> None:
+    global _SHARD_FN
+    _SHARD_FN = fn
+
+
+def shard_fn():
+    """The bound constraint (`runtime.sharding.ActivationLayout`), or None
+    outside a mesh."""
+    return _SHARD_FN
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    """Activation sharding constraint to logical axes: a no-op (compute
-    under a mesh is ROADMAP queue A item 14b)."""
-    return x
+    """Constrain activation `x` to logical axes (no-op outside a mesh)."""
+    if _SHARD_FN is None:
+        return x
+    return _SHARD_FN(x, axes)
+
+
+def is_sharded(x) -> bool:
+    """True for a DTensor (a tensor laid out over a mesh)."""
+    if not isinstance(x, torch.Tensor) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _split_dims(x, dim: int) -> list[int]:
+    """The mesh dims that split tensor dim `dim` of DTensor `x`."""
+    from torch.distributed.tensor import Shard
+
+    return [j for j, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
+
+
+def _box(x) -> tuple[tuple, tuple]:
+    """(start, stop) of this rank's shard of DTensor `x`."""
+    from ..runtime import sharding as _sh
+
+    return _sh.local_box(_sh.NamedSharding(x.device_mesh, tuple(x.placements)), tuple(x.shape))
+
+
+def _like(local: torch.Tensor, x, shape) -> Any:
+    """A DTensor of global `shape` laid out as `x`, whose shard here is
+    `local`."""
+    from ..runtime import sharding as _sh
+
+    return _sh.from_local(local, _sh.NamedSharding(x.device_mesh, tuple(x.placements)), shape)
+
+
+def _layer_of(a, i: int):
+    """Layer `i` of DTensor `a`, stacked on dim 0. Unsplit stacks give a
+    view. A split stack gives a copy: the ranks that hold layer `i` send
+    it, the others zeros, summed over the splitting mesh dims."""
+    from torch.distributed.tensor import Partial, Shard
+
+    split = _split_dims(a, 0)
+    if not split:
+        return a[i]
+    local = a.to_local()
+    start, stop = _box(a)
+    mine = (local[i - start[0]] if start[0] <= i < stop[0]
+            else torch.zeros(local.shape[1:], dtype=local.dtype, device=local.device))
+    pending = tuple(Partial() if j in split else Shard(p.dim - 1) if isinstance(p, Shard) else p
+                    for j, p in enumerate(a.placements))
+    from ..runtime import sharding as _sh
+
+    return reduce_partial(_sh.from_local(mine.contiguous(), _sh.NamedSharding(a.device_mesh, pending),
+                                         a.shape[1:]))
+
+
+def local_value(x):
+    """The value of a DTensor that every rank holds whole (all placements
+    Replicate) as a plain tensor; any other `x` as it is."""
+    if not is_sharded(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    if not all(isinstance(p, Replicate) for p in x.placements):
+        raise ValueError(f"local_value needs a replicated DTensor, got {x.placements}")
+    return x.to_local()
+
+
+def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, rows] = new`` in place (`index_copy_` on dim 1). A DTensor
+    cache takes `new` in its own layout and each rank writes its shard."""
+    if not is_sharded(cache):
+        cache.index_copy_(1, rows, new)
+        return
+    if _split_dims(cache, 1):
+        raise NotImplementedError(
+            "a cache split along its sequence dim (cache_sharding(seq_shard=True)) takes no "
+            "writes yet: ROADMAP.md queue A, item 14e")
+    from ..runtime import sharding as _sh
+
+    new = _sh.redistribute(new, tuple(cache.placements))
+    cache.to_local().index_copy_(1, rows, new.to_local())
 
 
 # ---------------------------------------------------------------------------
@@ -160,12 +295,85 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d_in) @ w: (d_in, d_out) in the compute dtype of x (the
-    weight is cast at every call, as in the reference)."""
-    return torch.matmul(x, w.to(x.dtype))
+    weight is cast at every call, as in the reference).
+
+    A DTensor `x` split along d_in (a row-parallel product) gives partial
+    sums: they are formed and added over the mesh in float32 and rounded
+    once to the compute dtype, so every rank holds the same bits and the
+    result differs from the unsharded product only by the order of its
+    float32 additions."""
+    wc = w.to(x.dtype)
+    if is_sharded(x) and _split_dims(x, x.ndim - 1):
+        y = torch.matmul(x.to(torch.float32), wc.to(torch.float32))
+        return reduce_partial(y).to(x.dtype)
+    return torch.matmul(x, wc)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A DTensor table split over its rows (the vocab)
+    looks up, on each rank, the tokens its rows hold and gives zeros for
+    the rest: a pending sum over the splitting mesh dims (`reduce_partial`
+    adds it exactly, one term being nonzero), laid out by the tokens' batch
+    split elsewhere. The tokens must be whole along the vocab split."""
+    if not is_sharded(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not is_sharded(tokens):
+        raise TypeError("a sharded table takes tokens laid out on its mesh "
+                        "(launch.dryrun.batch_shardings)")
+    rows = _split_dims(table, 0)
+    if _split_dims(table, 1) or any(not isinstance(tokens.placements[j], Replicate) for j in rows):
+        raise NotImplementedError(
+            f"a lookup in a table laid out {table.placements} by tokens laid out "
+            f"{tokens.placements} (the serving rules split the table's rows only)")
+    local = table.to_local()
+    start, _ = _box(table)
+    ids = tokens.to_local().long() - start[0]
+    hit = (ids >= 0) & (ids < local.shape[0])
+    out = torch.where(hit[..., None], local[ids.clamp(0, local.shape[0] - 1)],
+                      torch.zeros((), dtype=local.dtype, device=local.device))
+    from ..runtime import sharding as _sh
+
+    pending = tuple(Partial() if j in rows else p for j, p in enumerate(tokens.placements))
+    return _sh.from_local(out, _sh.NamedSharding(table.device_mesh, pending),
+                          tuple(tokens.shape) + (table.shape[1],))
+
+
+def reduce_partial(x):
+    """DTensor `x` with its pending sums (Partial placements) added over the
+    mesh (an all-reduce each); anything else as it is."""
+    if not is_sharded(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, L, n * dh) -> (B, L, n, dh). A DTensor whose last dim is split
+    over more ranks than divide `n` is gathered along it first (the
+    activation guard then leaves those heads replicated)."""
+    b, l = x.shape[:2]
+    if is_sharded(x):
+        split = _split_dims(x, x.ndim - 1)
+        if n % math.prod(x.device_mesh.size(j) for j in split):
+            from torch.distributed.tensor import Replicate
+
+            from ..runtime import sharding as _sh
+
+            x = _sh.redistribute(x, tuple(Replicate() if j in split else p
+                                          for j, p in enumerate(x.placements)))
+    return x.reshape(b, l, n, dh)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
-    """Rotary embedding. x: (B, L, H, Dh) with even Dh; positions: (B, L)."""
+    """Rotary embedding. x: (B, L, H, Dh) with even Dh; positions: (B, L).
+    A DTensor `x` (split by batch and heads) is rotated shard by shard;
+    its positions are then (1, L), the same for every row."""
+    if is_sharded(x):
+        return _like(rope(x.to_local(), positions, theta), x, x.shape)
     dh = x.shape[-1]
     half = dh // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
@@ -240,7 +448,12 @@ def attention(
     Queries longer than `q_chunk` (default `ATTN_Q_CHUNK`) run in chunks.
     With a static (int) q_offset the causal structure also truncates each
     chunk's KV prefix (the flash-attention triangle saving).
+
+    DTensors (split by batch and heads) run shard by shard
+    (`_attention_sharded`).
     """
+    if is_sharded(q):
+        return _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk)
     b, lq, hq, dh = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -266,6 +479,42 @@ def attention(
             out = _attn_direct(qs, k, v, causal, q_offset + s, window, kv_len, dh)
         outs.append(out)
     return torch.cat(outs, dim=1).reshape(b, lq, hq, v.shape[-1])
+
+
+def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
+    """`attention` on DTensors: k and v are laid out with q's batch split
+    and, where their heads divide, its head split; each rank attends its
+    own rows and query heads against the KV heads those need (the GQA
+    group's slice of the local K/V)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if _is_vector(q_offset) or _is_vector(kv_len):
+        raise NotImplementedError(
+            "per-slot clocks (the paged KV pool) under a mesh: ROADMAP.md queue A, item 14e")
+    mesh = q.device_mesh
+    if not all(p == Shard(0) or p == Shard(2) or isinstance(p, Replicate) for p in q.placements):
+        raise ValueError(f"attention splits queries by batch and heads only, got {q.placements}")
+    hq, hkv = q.shape[2], k.shape[2]
+    rep = hq // hkv
+    head_split = _split_dims(q, 2)
+    kv_heads_split = hkv % math.prod(mesh.size(j) for j in head_split) == 0
+    want = tuple(p if (p == Shard(0) or (p == Shard(2) and kv_heads_split)) else Replicate()
+                 for p in q.placements)
+    from ..runtime import sharding as _sh
+
+    k, v = _sh.redistribute(k, want), _sh.redistribute(v, want)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    h0, hq_loc = _box(q)[0][2], ql.shape[2]
+    g0 = _box(k)[0][2]
+    if hq_loc % rep == 0 and h0 % rep == 0:
+        heads = slice(h0 // rep - g0, h0 // rep - g0 + hq_loc // rep)
+    elif h0 // rep == (h0 + hq_loc - 1) // rep:
+        heads = slice(h0 // rep - g0, h0 // rep - g0 + 1)  # one group's part
+    else:  # the shard straddles groups: one KV head per query head
+        heads = torch.arange(h0, h0 + hq_loc, device=kl.device) // rep - g0
+    out = attention(ql, kl[:, :, heads], vl[:, :, heads], causal, q_offset, window,
+                    kv_len, q_chunk)
+    return _like(out, q, (q.shape[0], q.shape[1], hq, v.shape[-1]))
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -17,7 +17,8 @@ process group sits behind this small surface:
   past the deadline raises `BarrierTimeout` on the waiting ranks instead
   of hanging the job; `key_value_set` / `key_value_get` are small
   handshakes on the same store;
-* `psum`, `all_gather` and `halo` are the collectives the
+* `psum`, `all_gather` (also over a mesh dim's group: the split-to-whole
+  step of `sharding.redistribute`) and `halo` are the collectives the
   engine calls. Under ``nccl`` the tensors stay on the card; under
   ``gloo`` (which has no send/recv or all-gather for CUDA tensors, and
   the only backend that lets several ranks share one card) each copies
@@ -182,14 +183,16 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous()
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """(world, *t.shape): every rank's `t` stacked in rank order, on `t`'s
-    device. Every rank passes the same shape and dtype."""
-    if not is_multihost():
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *t.shape): the `t` of each of the n ranks of `group` (default:
+    every rank) stacked in rank order, on `t`'s device. Every rank of the
+    group passes the same shape and dtype."""
+    n = process_count() if group is None else int(torch.distributed.get_world_size(group))
+    if n == 1:
         return t.unsqueeze(0)
     src = _staged(t)
-    out = [torch.empty_like(src) for _ in range(process_count())]
-    torch.distributed.all_gather(out, src)
+    out = [torch.empty_like(src) for _ in range(n)]
+    torch.distributed.all_gather(out, src, group=group)
     return torch.stack(out).to(t.device)
 
 
@@ -279,8 +282,6 @@ def gather(x: Any, dst: int | None = None) -> torch.Tensor | None:
     biggest = max(math.prod(e) for e in ext)
     flat = torch.zeros(biggest, dtype=local.dtype, device=local.device)
     flat[: local.numel()] = local.reshape(-1)
-    if local.dtype == torch.bfloat16:  # gloo moves integers of its width
-        flat = flat.view(torch.int16)
     if dst is None:
         rows = all_gather(flat)
     else:
@@ -309,9 +310,8 @@ def put_global(value, sharding) -> Any:
     """Place `value` (an array, a memory-mapped one included, or a tensor,
     identical on every process) under `sharding` (a
     `runtime.sharding.NamedSharding`): each rank reads only its own box and
-    keeps it on the mesh's device, as a DTensor."""
-    from torch.distributed.tensor import DTensor
-
+    keeps it on the mesh's device, as a DTensor. A tensor's box is copied,
+    so the DTensor holds no reference to the whole `value`."""
     from . import sharding as _sh
 
     if not isinstance(value, torch.Tensor):
@@ -319,17 +319,14 @@ def put_global(value, sharding) -> Any:
     shape = tuple(int(s) for s in value.shape)
     start, stop = _sh.local_box(sharding, shape)
     box = tuple(slice(a, b) for a, b in zip(start, stop))
+    dev = _sh.mesh_device(sharding.mesh)
     if isinstance(value, torch.Tensor):
-        local = value.detach()[box]
+        local = value.detach()[box].to(dev, copy=True)
     else:
         # only the box is read (a memory-mapped array stays on disk)
         local = torch.from_numpy(np.array(value[box])) if shape else torch.tensor(value[()])
-    local = local.to(_sh.mesh_device(sharding.mesh)).contiguous()
-    stride = tuple(int(s) for s in torch.empty(shape).stride()) if shape else ()
-    return DTensor.from_local(
-        local, sharding.mesh, sharding.placements, run_check=False,
-        shape=torch.Size(shape), stride=stride,
-    )
+        local = local.to(dev)
+    return _sh.from_local(local.contiguous(), sharding, shape)
 
 
 def replicate(x: Any) -> Any:

@@ -15,16 +15,21 @@ names, or None (the reference's `PartitionSpec`). `NamedSharding(mesh,
 placements)` is its torch form: ``Shard(d)`` for a mesh dim that splits
 tensor dim d, ``Replicate()`` for one that splits nothing.
 
+Compute under a mesh: `activate(mesh, rules)` binds the activation
+constraint behind `models.nn.shard` (a DTensor is redistributed to the
+layout its logical axes resolve to, a plain tensor is taken as the global
+value and each rank keeps its box), and `cache_sharding` lays out decode
+caches by size matching, as the reference does.
+
 The introspection half (`mesh_of`, `spec_entries`, `unique_shards`,
 `shard_data`, `local_box`) tells the shard-local engine (`core/sharded.py`)
 and the segment writer where a DTensor's bytes live without gathering
 them. One rank is one device: a replica group is a tuple of ranks.
-
-Compute under a mesh (`activate`, `cache_sharding`) is ROADMAP item 14b.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -173,14 +178,179 @@ def tree_shardings(axes_tree: Any, rules: dict, mesh, abstract: Any = None) -> A
     return _tree_map(_fit, specs, abstract)
 
 
+def cache_sharding(
+    cache_desc: Any,
+    mesh,
+    batch: int,
+    head_sizes: set[int] = frozenset(),
+    seq_shard: bool = False,
+) -> Any:
+    """KV/state caches: shard the batch dim over (pod, data) and any
+    head-bearing dim over model, identified by size matching.
+
+    Finds the first dim equal to `batch` (sharded DP if divisible) and the
+    first later dim whose size is in `head_sizes` and divisible by the model
+    dim (sharded 'model'). Leading layer-stack dims stay replicated, unless
+    the stack is as long as the batch: then the stack is the first dim of
+    that size and takes the DP split (the reference's rule, kept as it is;
+    `ROADMAP.md` §C).
+
+    seq_shard: when no head dim can take the model dim, shard the first dim
+    after the batch that is at least 128 x model long and divisible by it
+    (the sequence) over 'model' instead.
+    """
+    names = _names(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    sizes = mesh_shape(mesh)
+    dp_n = math.prod(sizes[a] for a in dp) if dp else 1
+    model_n = sizes.get("model", 1)
+    dp_spec = dp[0] if len(dp) == 1 else dp
+
+    def _spec(leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        parts: list = [None] * len(shape)
+        bdim = None
+        for i, s in enumerate(shape):
+            if s == batch:
+                bdim = i
+                if batch % dp_n == 0:
+                    parts[i] = dp_spec
+                break
+        if bdim is not None:
+            placed = False
+            for j in range(bdim + 1, len(shape)):
+                if shape[j] in head_sizes and shape[j] % model_n == 0:
+                    parts[j] = "model"
+                    placed = True
+                    break
+            if not placed and seq_shard:
+                for j in range(bdim + 1, len(shape)):
+                    if shape[j] >= 128 * model_n and shape[j] % model_n == 0:
+                        parts[j] = "model"  # sequence dim
+                        break
+        return tuple(parts)
+
+    return _tree_map(lambda leaf: NamedSharding(mesh, spec_to_placements(mesh, _spec(leaf))),
+                     cache_desc)
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding, shape) -> Any:
+    """A DTensor of global `shape` under `sharding` whose shard on this rank
+    is `local` (its box: `local_box`)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(int(s) for s in shape)
+    stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def zeros(shape, dtype: torch.dtype, sharding: NamedSharding) -> Any:
+    """A DTensor of zeros of global `shape` under `sharding`: each rank
+    allocates only its box, on the mesh's device."""
+    start, stop = local_box(sharding, tuple(int(s) for s in shape))
+    local = torch.zeros([b - a for a, b in zip(start, stop)], dtype=dtype,
+                        device=mesh_device(sharding.mesh))
+    return from_local(local, sharding, shape)
+
+
+def _gather_split(x: Any, j: int) -> Any:
+    """DTensor `x` with its split over mesh dim `j` gathered (Replicate
+    there), through `dist.all_gather` on that dim's group: staged through
+    the host under gloo, whose all-gather of CUDA tensors crashes the
+    process (PERF.md §6). Shards of uneven size are padded to the
+    largest and cut back."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from . import dist
+
+    mesh, d = x.device_mesh, x.placements[j].dim
+    if any(isinstance(p, Shard) and p.dim == d for i, p in enumerate(x.placements) if i != j):
+        raise NotImplementedError(f"dim {d} split over two mesh dims: {x.placements}")
+    n, extent = mesh.size(j), int(x.shape[d])
+    chunk = -(-extent // n)
+    local = x.to_local()
+    if local.shape[d] < chunk:
+        pad = list(local.shape)
+        pad[d] = chunk - local.shape[d]
+        local = torch.cat([local, local.new_zeros(pad)], dim=d)
+    parts = dist.all_gather(local.contiguous(), group=mesh.get_group(j))
+    whole = torch.cat([parts[c].narrow(d, 0, max(0, min(chunk, extent - c * chunk)))
+                       for c in range(n)], dim=d)
+    gathered = tuple(Replicate() if i == j else p for i, p in enumerate(x.placements))
+    return from_local(whole, NamedSharding(mesh, gathered), x.shape)
+
+
+def redistribute(x: Any, placements: tuple) -> Any:
+    """DTensor `x` under `placements` on its own mesh, with two collectives
+    only: a split that ends is gathered (`_gather_split`) and a pending sum
+    that ends is added up (DTensor's all-reduce, which gloo runs on CUDA
+    tensors); what is left is local (a slice, or a sum left pending)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = tuple(placements)
+    for j, (c, t) in enumerate(zip(x.placements, placements)):
+        if isinstance(c, Shard) and c != t:
+            x = _gather_split(x, j)
+    summed = tuple(Replicate() if c.is_partial() and c != t else c
+                   for c, t in zip(x.placements, placements))
+    if summed != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, summed)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def lay_out(x: Any, sharding: NamedSharding) -> Any:
+    """`x` under `sharding`: a DTensor redistributed, a plain tensor taken as
+    the global value (the same on every rank) of which each rank keeps its
+    box."""
+    from . import dist
+
+    if dist.is_dtensor(x):
+        return redistribute(x, sharding.placements)
+    return dist.put_global(x, sharding)
+
+
+class ActivationLayout:
+    """The activation constraint `activate` binds to `models.nn.shard`:
+    `layout(x, axes)` lays `x` out by the logical `axes` under `rules` on
+    `mesh`, dropping mesh dims that do not divide their dim, and returns
+    `x` as it is when `axes` does not name every dim."""
+
+    def __init__(self, mesh, rules: dict):
+        self.mesh = mesh
+        self.rules = rules
+        self.sizes = mesh_shape(mesh)
+
+    def _divides(self, dim: int, part) -> bool:
+        if part is None:
+            return True
+        names = (part,) if isinstance(part, str) else part
+        return dim % math.prod(self.sizes[a] for a in names) == 0
+
+    def spec(self, shape, axes: tuple) -> tuple:
+        spec = spec_for_axes(axes, self.rules, self.mesh)
+        return tuple(p if self._divides(int(d), p) else None for d, p in zip(shape, spec))
+
+    def __call__(self, x, axes: tuple):
+        if len(axes) != x.ndim:
+            return x
+        return lay_out(x, NamedSharding(self.mesh, spec_to_placements(self.mesh, self.spec(x.shape, axes))))
+
+
+@contextlib.contextmanager
 def activate(mesh, rules: dict):
-    raise NotImplementedError(
-        "activation constraints under a mesh (nn.shard) are ROADMAP.md queue A, item 14b"
-    )
+    """Bind the activation constraint used by `nn.shard` (and the mesh that
+    `init_cache` lays caches out on) for the body; unbound on exit, also
+    when the body raises."""
+    from ..models import nn
 
-
-def cache_sharding(*args, **kwargs):
-    raise NotImplementedError("cache_sharding is ROADMAP.md queue A, item 14b")
+    nn.set_shard_fn(ActivationLayout(mesh, rules))
+    try:
+        yield
+    finally:
+        nn.set_shard_fn(None)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +453,7 @@ def shard_data(x: Any, rank: int) -> torch.Tensor:
 
 
 __all__ = [
+    "ActivationLayout",
     "NamedSharding",
     "SERVE_RULES",
     "TRAIN_RULES",
@@ -290,12 +461,15 @@ __all__ = [
     "activate",
     "axis_size",
     "cache_sharding",
+    "from_local",
+    "lay_out",
     "local_box",
     "mesh_device",
     "mesh_of",
     "mesh_shape",
     "neighbors",
     "placements_to_spec",
+    "redistribute",
     "shard_box",
     "shard_data",
     "spec_entries",
@@ -304,4 +478,5 @@ __all__ = [
     "tree_shardings",
     "tree_specs",
     "unique_shards",
+    "zeros",
 ]

@@ -8,11 +8,13 @@ train step here updates them in place (see `make_train_step`).
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from ..core import pytree
+from ..models import nn
 from ..models.model import BaseLM
 from ..optim import adamw, compress
 
@@ -74,21 +76,52 @@ def make_prefill_step(model: BaseLM):
     return prefill
 
 
+def greedy(last: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32: each row's first maximum, as
+    `jnp.argmax`. A DTensor row split over the vocab takes each shard's
+    first maximum, gathers the candidates (a value and an index a shard,
+    in vocab order) and keeps the first of the largest, so every rank of
+    the row's group holds the same token; the result keeps the rows' batch
+    split."""
+    if not nn.is_sharded(last):
+        return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from . import sharding
+
+    mesh = last.device_mesh
+    split = [j for j, p in enumerate(last.placements) if p == Shard(1)]
+    layout = sharding.NamedSharding(mesh, tuple(last.placements))
+    start, _ = sharding.local_box(layout, tuple(last.shape))
+    val, idx = torch.max(last.to_local(), dim=-1)
+    shape = (last.shape[0], math.prod(mesh.size(j) for j in split))
+    whole = tuple(Replicate() if j in split else p for j, p in enumerate(last.placements))
+
+    def gathered(x):  # one candidate a vocab shard, in vocab order
+        return sharding.redistribute(sharding.from_local(x[:, None].contiguous(), layout, shape),
+                                     whole).to_local()
+
+    vals, ids = gathered(val), gathered((idx + start[1]).to(torch.int32))
+    tok = torch.gather(ids, 1, torch.argmax(vals, dim=-1, keepdim=True))
+    return sharding.from_local(tok, sharding.NamedSharding(mesh, whole), (last.shape[0], 1))
+
+
 def make_decode_step(model: BaseLM, sample: bool = False, temperature: float = 1.0):
     """serve decode: (params, tokens (B, 1), cache[, generator]) -> (next
-    (B, 1) int32, cache). Greedy decoding takes the argmax (the first
-    maximum, as `jnp.argmax`); sampling draws from softmax(logits / T)
-    with the explicit `generator`, so its draws are torch's, not the
-    reference's `jax.random` ones."""
+    (B, 1) int32, cache). Greedy decoding takes the argmax (`greedy`: the
+    first maximum, as `jnp.argmax`); sampling draws from softmax(logits /
+    T) with the explicit `generator`, so its draws are torch's, not the
+    reference's `jax.random` ones (under a mesh every rank draws from the
+    whole row with its own generator, which must be seeded alike)."""
 
     def decode(params, tokens, cache, generator=None):
         logits, cache = model.forward(params, {"tokens": tokens}, cache=cache)
         last = logits[:, -1]
-        if sample:
-            probs = torch.softmax(last / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)
-        else:
-            nxt = torch.argmax(last, dim=-1)[:, None]
-        return nxt.to(torch.int32), cache
+        if not sample:
+            return greedy(last), cache
+        whole = last.full_tensor() if nn.is_sharded(last) else last
+        probs = torch.softmax(whole / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+        return nn.shard(nxt, "batch", None), cache
 
     return decode

@@ -319,8 +319,9 @@ def test_not_ported_layouts_raise_naming_item_14(tmp_path, one_rank_job):
     """Item 14a is ported: ``sharded=True`` saves the segment layout (plain
     tensors ride one gathered segment each), the reference reads it, a v2
     segments manifest restores, and `restore_tree(shardings=)` places the
-    leaves on a one-rank mesh as DTensors. Compute under a mesh (14b) still
-    raises naming its item."""
+    leaves on a one-rank mesh as DTensors. Compute under a mesh (14b) is
+    ported too: `activate` binds the activation constraint for its body and
+    unbinds it after."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import make_local_mesh
@@ -354,8 +355,16 @@ def test_not_ported_layouts_raise_naming_item_14(tmp_path, one_rank_job):
     assert isinstance(placed["w"], DTensor) and placed["w"].device_mesh is mesh
     assert torch.equal(placed["w"].to_local(), got["w"])
     assert not isinstance(placed["ids"], DTensor) and torch.equal(placed["ids"], got["ids"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        rsh.activate(mesh, rsh.TRAIN_RULES)
+    from repro_torch.models import nn as mnn
+
+    with rsh.activate(mesh, rsh.TRAIN_RULES):
+        assert mnn.shard_fn() is not None and mnn.shard_fn().mesh is mesh
+        laid = mnn.shard(got["w"], "batch", None)
+        assert isinstance(laid, DTensor) and laid.device_mesh is mesh
+        assert rsh.spec_entries(laid) == ("data", None)
+        assert torch.equal(laid.to_local(), got["w"])
+    assert mnn.shard_fn() is None
+    assert mnn.shard(got["w"], "batch", None) is got["w"]
 
 
 def test_without_cuda_the_default_device_raises(tmp_path):

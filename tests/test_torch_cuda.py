@@ -1155,3 +1155,27 @@ def test_sharded_two_ranks_on_card(cuda_device, tmp_path):
         assert g["launches"]["lorenzo2d_encode"] >= 1, g
     assert g0["err"] <= g0["eb"] and g1["err"] == g0["err"], (g0, g1)
 
+
+
+def test_mesh_layer_two_ranks_on_card(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (`launch/mhrun.py`) on a (1, 2)
+    ('data', 'model') mesh: one phi4-mini-width decoder layer under
+    `runtime.sharding.activate(mesh, SERVE_RULES)` (its matrices split
+    over 'model', its products' partials added in float32 over gloo, the
+    cache laid out by `cache_sharding`) gives the unsharded layer's
+    prefill and decode outputs and cache on the card, to the bfloat16
+    bound of `chip_smoke.py`'s `[mesh-serve]` (2e-2 of max)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    payloads = W.run_job("card_layer", 2, tmp_path, timeout_s=300.0)
+    for p in payloads:
+        assert p["backend"] == "gloo" and p["device"].startswith("cuda"), p
+        assert p["specs"]["attn/wq"] == [None, "model"] and p["specs"]["attn/norm"] == [None], p
+        assert p["specs"]["mlp/w_down"] == ["model", None], p
+        assert p["prefill"] <= 2e-2 and p["decode"] <= 2e-2, p
+        assert all(d <= 2e-2 for d in p["cache"].values()), p
+    assert payloads[0]["prefill"] == payloads[1]["prefill"]

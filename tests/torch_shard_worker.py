@@ -442,8 +442,153 @@ def scenario_card(spec: dict, rank: int) -> dict:
     return out
 
 
+def _spec(x) -> list:
+    from repro_torch.runtime import sharding as rsh
+
+    return [list(e) if isinstance(e, tuple) else e for e in rsh.spec_entries(x)]
+
+
+def scenario_mesh_serve(spec: dict, rank: int) -> dict:
+    """The dense decoder served under `SERVE_RULES` on a mesh of the job's
+    ranks: for each (dtype, batch) case, the reduced model's params (the
+    job's `weights.npz`, laid out by `tree_shardings`) through
+    `launch.serve.run_static(mesh=, teacher=, keep=True)`: the prefill and
+    teacher-forced decode steps. Rank 0 writes every case's logits, the
+    gathered cache and the param and cache specs to `mesh_serve.pkl`."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    from repro_torch.launch.dryrun import batch_shardings
+
+    torch.set_num_threads(2)
+    a = spec["args"]
+    mesh = make_emulated_mesh(tuple(a["mesh"]), device="cpu")
+    weights = dict(np.load(os.path.join(spec["outdir"], "weights.npz")))
+    teacher = np.load(os.path.join(spec["outdir"], "teacher.npy"))
+    # the constraint's contract on plain tensors and DTensors
+    x = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    with rsh.activate(mesh, rsh.SERVE_RULES):
+        placed = mnn.shard(x, "batch", None, "heads")
+        odd = mnn.shard(x[:3, :, :6], "batch", None, "heads")
+        same = mnn.shard(x, "batch", None) is x
+        back = mnn.shard(placed, None, None, None)
+        bound = mnn.shard_fn() is not None
+    start, stop = rsh.local_box(rsh.NamedSharding(mesh, tuple(placed.placements)), (4, 6, 8))
+    guard = dict(
+        placed=_spec(placed), odd=_spec(odd), same=same, back=_spec(back), bound=bound,
+        unbound=mnn.shard_fn() is None,
+        box=bool(torch.equal(placed.to_local(), x[tuple(slice(i, j) for i, j in zip(start, stop))])),
+        back_equal=bool(torch.equal(back.to_local(), x)),
+    )
+    out = {}
+    for dtype, batch in a["cases"]:
+        cfg = dataclasses.replace(reduced_for_smoke(get_config(a["arch"])), dtype=dtype)
+        model = build_model(cfg, device="cpu")
+        desc = model.desc()
+        lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
+                                            mnn.abstract_tree(desc)))
+        params = nest({k: dist.put_global(torch.from_numpy(w), lay[k])
+                             for k, w in weights.items()})
+        args = argparse.Namespace(batch=batch, prompt_len=a["prompt_len"], gen=a["gen"],
+                                  sample=False)
+        res = serve.run_static(args, cfg, model, params, mesh=mesh,
+                               teacher=teacher[:batch, : a["gen"] - 1], keep=True)
+        cache = _flat(res["cache"])
+        whole = {k: dist.gather(v) for k, v in cache.items()}
+        # the forward without a cache (no bfloat16 K/V on the way)
+        prompts = np.random.default_rng(0).integers(1, cfg.vocab, (batch, a["prompt_len"]))
+        with rsh.activate(mesh, rsh.SERVE_RULES):
+            tok = dist.put_global(torch.as_tensor(prompts, dtype=torch.int32),
+                                  batch_shardings({"t": prompts}, mesh, batch)["t"])
+            logits, _ = model.forward(params, {"tokens": tok})
+        out[f"{dtype}/{batch}"] = dict(
+            forward=dist.gather(logits).numpy(),
+            logits=[t.numpy() for t in res["logits"]], tokens=res["tokens"],
+            cache={k: v.to(torch.float32).numpy() for k, v in whole.items()},
+            param_specs={k: _spec(v) for k, v in _flat(params).items()},
+            cache_specs={k: _spec(v) for k, v in cache.items()},
+        )
+    if rank == 0:
+        _dump(spec, "mesh_serve.pkl", out)
+    return {"rank": rank, "backend": dist.backend(), "guard": guard,
+            "tokens": {k: v["tokens"].tolist() for k, v in out.items()}}
+
+
+def scenario_card_layer(spec: dict, rank: int) -> dict:
+    """Two ranks on one card over gloo, a (1, 2) ('data', 'model') mesh: one
+    phi4-mini-width decoder layer (attention with its cache, SwiGLU MLP)
+    under `activate(mesh, SERVE_RULES)`, a 16-token prefill and one decode
+    step, against the same layer run unsharded on the card from the same
+    weights: each output's and the cache's distance, of their max."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.models import blocks, build_model
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_emulated_mesh((1, 2))
+    cfg = get_config("phi4-mini-3.8b").scaled(n_layers=1)
+    model = build_model(cfg, device=dev)
+    desc = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
+    full = mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)
+    lay = rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh, mnn.abstract_tree(desc))
+    params = mnn.tree_map(dist.put_global, full, lay)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, l = 2, 16
+    xs = torch.randn(b, l + 1, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    outs, caches = {}, {}
+    for name, p in (("plain", full), ("sharded", params)):
+        with rsh.activate(mesh, rsh.SERVE_RULES) if name == "sharded" else _nothing():
+            cache = mnn.layer(model.init_cache(b, l + 1)["blocks"], 0)
+            x = mnn.shard(xs, "batch", None, None)
+            got = []
+            for lo, hi in ((0, l), (l, l + 1)):
+                positions = torch.arange(lo, hi, device=dev)[None]
+                cl = dict(cache, len=torch.tensor(lo, dtype=torch.int32, device=dev))
+                y, _ = model._block(p, x[:, lo:hi], positions, cl)
+                got.append(dist.gather(y) if name == "sharded" else y.cpu())
+            outs[name] = got
+            caches[name] = {k: dist.gather(v) if name == "sharded" else v.cpu()
+                            for k, v in cache.items()}
+
+    def rel(a, w):
+        a, w = a.to(torch.float32), w.to(torch.float32)
+        return float((a - w).abs().max() / w.abs().max())
+
+    return dict(
+        rank=rank, backend=dist.backend(), device=str(params["attn"]["wq"].to_local().device),
+        specs={k: _spec(v) for k, v in _flat(params).items()},
+        prefill=rel(outs["sharded"][0], outs["plain"][0]),
+        decode=rel(outs["sharded"][1], outs["plain"][1]),
+        cache={k: rel(caches["sharded"][k], caches["plain"][k]) for k in caches["plain"]},
+    )
+
+
+def _nothing():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
 SCENARIOS = {
     "card": scenario_card,
+    "card_layer": scenario_card_layer,
+    "mesh_serve": scenario_mesh_serve,
     "fault": scenario_fault,
     "owner": scenario_owner,
     "save_restore": scenario_save_restore,
