@@ -163,7 +163,20 @@ phase that goes wrong:
    margin); prefill and decode ms beside the unsharded run's, the
    collectives of a prefill and of a decode step by kind, one decode step
    traced on rank 0, the peak memory of each rank. No kernel runs here;
-16. one JSON line with every kernel's launches on its path, error, times,
+16. training under a mesh (`[mesh-train]`, after `[mesh-serve]`):
+   smollm-360m at full width and depth trained unsharded on the card
+   (`launch.train.main`, 2 steps of 8 x 256 tokens with gradient
+   compression), then by four ranks over gloo on a (2, 2) ('data',
+   'model') mesh through `launch.train.run(mesh=)` under `TRAIN_RULES`
+   (FSDP over 'data', TP over 'model'; params from the same generator,
+   each rank keeping its box): the same steps with an `async_save` after
+   the last and the final save, each step's loss within `MESH_TRAIN_RTOL`
+   of the unsharded run's; a restore of that step under the mesh equal
+   to the trained state bit for bit; a resumed run whose first loss is
+   the unsharded params' loss on the same batch, within the same bound;
+   each rank's step ms beside the unsharded step's, the collectives of
+   one step by kind, the peak memory of each rank. No kernel runs here;
+17. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -605,16 +618,80 @@ def phase_parity_bot(torch, np, dev, flush, results):
             f"{bound_by}); one block {list(block.shape)}: {block_ms} ms")
 
 
+#: the field names of `benchmarks.common`'s Hurricane and NYX suites
+HURRICANE_NAMES = ("QICE", "PRECIP", "U", "V", "W", "P", "T", "QVAPOR", "QCLOUD", "QRAIN",
+                   "QSNOW", "QGRAUP", "CLOUD")
+NYX_NAMES = ("baryon_density", "dark_matter_density", "temperature", "velocity_x",
+             "velocity_y", "velocity_z")
+
+
+def suite_fields(suite: str, n: int) -> list:
+    """(name, slope, seed, nonlinearity): the `_spectral_field` call that
+    `benchmarks.common.hurricane_suite(n)` or `nyx_suite(n)` makes for
+    each of its fields, in its order (`check_suite_fields` holds them to
+    the suite)."""
+    if suite == "hurricane":
+        return [(f"{HURRICANE_NAMES[i % 13]}_{i}", -4.0 + 2.0 * i / max(n - 1, 1), 200 + i,
+                 "relu" if HURRICANE_NAMES[i % 13].startswith("Q") else None) for i in range(n)]
+    return [(NYX_NAMES[i], -2.8, 300 + i,
+             "exp" if "density" in NYX_NAMES[i] or "temperature" in NYX_NAMES[i] else None)
+            for i in range(n)]
+
+
+def check_suite_fields(np, suite: str, n: int) -> None:
+    """`suite_fields` drawn at a small size equal the suite's own fields."""
+    import benchmarks.common as c
+
+    size = (4, 8, 8)
+    want = getattr(c, f"{suite}_suite")(n, size=size)
+    got = {name: c._spectral_field(size, slope, seed, nl)
+           for name, slope, seed, nl in suite_fields(suite, n)}
+    check(list(got) == list(want) and all(np.array_equal(got[k], want[k]) for k in want),
+          f"suite_fields('{suite}', {n}) differ from the suite's fields")
+
+
+def start_suite_fields(suite: str, n: int, size: tuple, out: Path, prefix: str = "") -> list:
+    """Start one process a field of `suite_fields(suite, n)` at `size`, each
+    drawing it with `benchmarks.common._spectral_field` and writing it to
+    `out` as `{prefix}{name}.npy`."""
+    code = (
+        "import sys, json, numpy as np; sys.path.insert(0, sys.argv[1]);"
+        "from benchmarks.common import _spectral_field;"
+        "size, name, slope, seed, nl = json.loads(sys.argv[3]);"
+        "np.save(f'{sys.argv[2]}/{name}.npy', _spectral_field(tuple(size), slope, seed, nl))"
+    )
+    return [subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out),
+                              json.dumps([list(size), prefix + name, slope, seed, nl])])
+            for name, slope, seed, nl in suite_fields(suite, n)]
+
+
 def paper_fields(np):
     """The paper-sized fields: 4 CESM-ATM-like 1800x3600 and all 13
-    Hurricane-like 100x500x500 (`benchmarks/common.py`), ~1.4 GB float32."""
-    from benchmarks.common import atm_suite, hurricane_suite
+    Hurricane-like 100x500x500 (`benchmarks/common.py`), ~1.4 GB float32.
+    The Hurricane fields are drawn one process a field
+    (`start_suite_fields`)."""
+    import shutil
+
+    from benchmarks.common import atm_suite
 
     t0 = time.perf_counter()
+    out = ROOT / "build" / "paper_fields"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    check_suite_fields(np, "hurricane", HURRICANE_FIELDS)
+    procs = start_suite_fields("hurricane", HURRICANE_FIELDS, (100, 500, 500), out)
     atm = atm_suite(4, size=(1800, 3600))
-    hurricane = hurricane_suite(13, size=(100, 500, 500))
+    for i, proc in enumerate(procs):
+        check(proc.wait() == 0, f"Hurricane field {i}: its process exited {proc.returncode}")
+    hurricane = {name: np.load(out / f"{name}.npy")
+                 for name, *_ in suite_fields("hurricane", HURRICANE_FIELDS)}
+    shutil.rmtree(out, ignore_errors=True)
     log("fields", f"generated {len(atm) + len(hurricane)} in {time.perf_counter() - t0:.1f} s")
     return atm, hurricane
+
+
+#: the Hurricane-like fields of `paper_fields`
+HURRICANE_FIELDS = 13
 
 
 def phase_main(torch, np, dev, atm, hurricane):
@@ -3010,23 +3087,17 @@ def sharded_dir() -> Path:
 
 def start_nyx() -> list:
     """Start one process a NYX field, each writing its volume as .npy under
-    `sharded_dir()/fields` (numpy's FFT, ~45 s a 512^3 field): process i
-    runs `nyx_suite` with every field but its i-th skipped, so the fields
-    are `nyx_suite`'s own."""
+    `sharded_dir()/fields` (numpy's FFT, ~45 s a 512^3 field;
+    `start_suite_fields`)."""
     import shutil
+
+    import numpy as np
 
     out = sharded_dir() / "fields"
     shutil.rmtree(sharded_dir(), ignore_errors=True)
     out.mkdir(parents=True)
-    code = (
-        "import sys, numpy as np; sys.path.insert(0, sys.argv[1]);"
-        "import benchmarks.common as c; i = int(sys.argv[3]); real = c._spectral_field;"
-        "c._spectral_field = lambda *a, n=iter(range(99)): real(*a) if next(n) == i else None;"
-        f"d = c.nyx_suite({NYX_FIELDS}, size={NYX_SIZE});"
-        "[np.save(f'{sys.argv[2]}/nyx_{k}.npy', v) for k, v in d.items() if v is not None]"
-    )
-    return [subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(out), str(i)])
-            for i in range(NYX_FIELDS)]
+    check_suite_fields(np, "nyx", NYX_FIELDS)
+    return start_suite_fields("nyx", NYX_FIELDS, NYX_SIZE, out, prefix="nyx_")
 
 
 #: K1/K2 at the shard shapes the [sharded] save encodes: an ATM field's
@@ -3681,14 +3752,205 @@ def mesh_serve_only(torch, np, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [mesh-train]: the dense decoder trained under TRAIN_RULES, 4 ranks
+# ---------------------------------------------------------------------------
+
+#: smollm-360m at full width and depth on a (2, 2) ('data', 'model') mesh
+#: of 4 ranks sharing the card over gloo: 2 compressed steps of 8 x 256
+#: tokens (an async save after step 2, then the final save of the same
+#: step), a restore of step 2 under the mesh, then a resumed run to step 3
+MESH_TRAIN_ARCH, MESH_TRAIN_MESH, MESH_TRAIN_RANKS = "smollm-360m", (2, 2), 4
+MESH_TRAIN_STEPS, MESH_TRAIN_RESUME = 2, 3
+#: the launcher computes in bfloat16 (the config's dtype): max(2e-2, d) of
+#: the loss, d the reference's own sharded-vs-unsharded distance at
+#: bfloat16 (within 2e-2 on the reduced model, tests/test_torch_mesh_train.py)
+MESH_TRAIN_RTOL = 2e-2
+MESH_TRAIN_TIMEOUT_S = 900.0
+#: full-width training that does not fit four ranks sharing one 80 GB card
+MESH_TRAIN_NOT_RUN = {
+    "phi4-mini-3.8b": "~89 GB of float32 train state (params, m, v, residuals)",
+    "llama4-scout-17b-a16e": "2.2 B parameters a layer; MoE under a mesh is item 14e",
+    "deepseek-v2-236b": "~3.9 B parameters a layer; MoE and MLA under a mesh are item 14e",
+}
+
+
+def mesh_train_dir() -> Path:
+    return ROOT / "build" / "mesh_train"
+
+
+def _mesh_train_argv(device: str, smoke: bool) -> list:
+    return (["--arch", MESH_TRAIN_ARCH, "--device", device, "--batch", "8", "--seq", "256",
+             "--steps", str(MESH_TRAIN_STEPS), "--compress-grads", "--log-every", "1"]
+            + (["--smoke"] if smoke else []))
+
+
+def phase_mesh_train(torch, np, dev, card, smoke: bool = False) -> dict:
+    """`[mesh-train]`: smollm-360m trained unsharded on the card by
+    `launch.train.main` (its losses, step ms and peak kept), and the
+    unsharded params' loss on the batch of step `MESH_TRAIN_STEPS`; then
+    the card freed and four ranks (`launch/mhrun.py`, gloo) training it
+    through `train.run(mesh=)` on a (2, 2) ('data', 'model') mesh under
+    `TRAIN_RULES` with an async save and the final save, restoring that
+    save under the mesh (bit for bit against the trained state), and
+    resuming for one step (`mesh_train_worker`). Every loss within
+    `MESH_TRAIN_RTOL` of the unsharded one; prints each rank's step ms
+    beside the unsharded step's, one step's collectives by kind (DTensor's
+    all-reduces, the host-staged all-gathers and reduce-scatters), the
+    peak memory of each rank, the saves' and the restore's ms. No kernel
+    of K1-K6 runs here."""
+    import shutil
+
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import mhrun, train
+
+    free_card(torch)
+    wd = mesh_train_dir()
+    shutil.rmtree(wd, ignore_errors=True)
+    wd.mkdir(parents=True)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = train.main(_mesh_train_argv(dev.type, smoke))
+    base_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    args = train.parse_args(_mesh_train_argv(dev.type, smoke))
+    cfg, model = train.build(args)
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
+                            MESH_TRAIN_STEPS)
+    with torch.no_grad():
+        after, _ = model.loss(base["params"], {k: torch.from_numpy(v).to(dev)
+                                               for k, v in batch.items()})
+    n_params = sum(a.numel() for a in _leaves(base["params"]))
+    want = base["losses"] + [float(after)]
+    del base["params"], base["opt"], model
+    free_card(torch)
+    t0 = time.perf_counter()
+    results = mhrun.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-train-worker"], MESH_TRAIN_RANKS,
+        scenario="mesh_train", backend="gloo", timeout_s=MESH_TRAIN_TIMEOUT_S,
+        workdir=str(wd / "mhrun"), extra_env={"OMP_NUM_THREADS": "2"},
+        args=dict(smoke=smoke, device=dev.type, dir=str(wd)),
+    )
+    job_s = time.perf_counter() - t0
+    payloads = mhrun.require_success(results)
+    p0 = payloads[0]
+    got = p0["losses"] + p0["resumed"]
+    check(len(got) == len(want), f"{len(got)} losses, want {len(want)}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    for p in payloads:
+        check(p["losses"] + p["resumed"] == got, f"rank {p['rank']} holds other losses")
+        check(not p["misplaced"], f"rank {p['rank']}: state off TRAIN_RULES' placements: "
+              f"{p['misplaced'][:4]}")
+        check(p["restored_equal"], f"rank {p['rank']}: the restore under the mesh differs from "
+              f"the trained state: {p['restored_unequal'][:4]}")
+        check(p["resumed_from"] == MESH_TRAIN_STEPS, f"rank {p['rank']} resumed from "
+              f"{p['resumed_from']}")
+    for i, d in enumerate(rel):
+        check(d <= MESH_TRAIN_RTOL, f"step {i}: sharded loss {got[i]} {d:.4g} off the unsharded "
+              f"{want[i]} (bound {MESH_TRAIN_RTOL})")
+    log("mesh-train", json.dumps(dict(
+        arch=MESH_TRAIN_ARCH, params=n_params, dtype=cfg.dtype, mesh=p0["mesh"],
+        backend=p0["backend"], ranks=len(payloads), rules="TRAIN_RULES", batch=args.batch,
+        seq=args.seq, steps=MESH_TRAIN_STEPS, resumed_to=MESH_TRAIN_RESUME, losses=got,
+        unsharded_losses=want, rel_by_step=rel, bound=MESH_TRAIN_RTOL,
+        restored_from=p0["restored_from"], restored_bit_for_bit=True, job_s=job_s, card=card)))
+    log("mesh-train", json.dumps(dict(
+        step_ms_max_over_ranks=[max(p["step_ms"][i] for p in payloads)
+                                for i in range(MESH_TRAIN_STEPS)],
+        step_ms_by_rank=[p["step_ms"] for p in payloads],
+        unsharded_step_ms=[t * 1e3 for t in base["step_s"]],
+        resumed_step_ms=max(p["resumed_step_ms"] for p in payloads),
+        collectives_a_step=p0["comm_step"], collectives_resumed_run=p0["comm_resumed_run"],
+        save_gathers=p0["save_gathers"], first_run_s=max(p["first_run_s"] for p in payloads),
+        resumed_run_s=max(p["resumed_run_s"] for p in payloads),
+        restore_ms=max(p["restore_ms"] for p in payloads),
+        peak_gib_by_rank=[p["peak_gib"] for p in payloads], unsharded_peak_gib=base_peak,
+        card=card)))
+    log("mesh-train", json.dumps(dict(not_run=MESH_TRAIN_NOT_RUN)))
+    shutil.rmtree(wd, ignore_errors=True)
+    return dict(rel=rel, step_ms=[max(p["step_ms"][i] for p in payloads)
+                                  for i in range(MESH_TRAIN_STEPS)])
+
+
+def mesh_train_worker(spec: dict, rank: int) -> dict:
+    """One rank of `[mesh-train]` (`phase_mesh_train` says what it does)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import describe_mesh, make_emulated_mesh
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    a = spec["args"]
+    wd = Path(a["dir"])
+    cuda = a["device"] == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_emulated_mesh(MESH_TRAIN_MESH, device=a["device"])
+    ckpt = ["--ckpt-dir", str(wd / "ckpt"), "--ckpt-every", "2"]
+    args = train.parse_args(_mesh_train_argv(a["device"], a["smoke"]) + ckpt)
+    cfg, model = train.build(args)
+    desc = model.desc()
+    rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.TRAIN_RULES, mesh,
+                                     mnn.abstract_tree(desc)))
+    first = train.run(args, cfg, model, rsh.place_params(model, mesh, rsh.TRAIN_RULES), mesh=mesh)
+    state = {"params": first["params"], "opt": first["opt"]["adam"]}
+    trees = (("params", state["params"]), ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))
+    misplaced = [f"{part}/{k}" for part, tree in trees for k, v in _flat(tree).items()
+                 if tuple(v.placements) != tuple(rules[k].placements)]
+    out = dict(rank=rank, backend=dist.backend(), mesh=describe_mesh(mesh)["shape"],
+               losses=first["losses"], step_ms=[t * 1e3 for t in first["step_s"]],
+               first_run_s=first["seconds"], misplaced=misplaced)
+    save_leaves = sum(dist.is_dtensor(v) for v in _flat(state).values())
+    # the last save restored under the mesh (each rank reading its shards)
+    # and held to the trained state bit for bit
+    mgr = CheckpointManager(CheckpointConfig(str(wd / "ckpt")), device=model.device)
+    t0 = time.perf_counter()
+    restored_from, restored = mgr.restore_tree(state,
+                                               shardings=pytree.tree_map(rsh.layout_of, state))
+    out.update(restore_ms=(time.perf_counter() - t0) * 1e3, restored_from=restored_from)
+    trained = _flat(state)
+    out["restored_unequal"] = [k for k, v in _flat(restored).items()
+                               if not torch.equal(dist.local(v), dist.local(trained[k]))]
+    del first, state, trained, restored
+    # the resumed run: its own restore, one step and the final save, whose
+    # flat layout gathers each DTensor leaf once (an all-gather a leaf)
+    args = train.parse_args(_mesh_train_argv(a["device"], a["smoke"]) + ckpt
+                            + ["--steps", str(MESH_TRAIN_RESUME), "--resume"])
+    params = rsh.place_params(model, mesh, rsh.TRAIN_RULES)
+    with CommDebugMode() as comm:
+        again = train.run(args, cfg, model, params, mesh=mesh)
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    step_counts = dict(counts)
+    step_counts["c10d.allgather_"] = step_counts.get("c10d.allgather_", 0) - save_leaves
+    out["restored_equal"] = not out["restored_unequal"]
+    return dict(out, resumed=again["losses"], resumed_from=MESH_TRAIN_RESUME - len(again["losses"]),
+                resumed_step_ms=again["step_s"][0] * 1e3, resumed_run_s=again["seconds"],
+                comm_resumed_run=counts, save_gathers=save_leaves, comm_step=step_counts,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+
+
+def mesh_train_only(torch, np, dev) -> dict:
+    """`[mesh-train]` alone."""
+    return phase_mesh_train(torch, np, dev, card_line())
+
+
 def main() -> int:
-    if "--sharded-worker" in sys.argv or "--mesh-serve-worker" in sys.argv:
-        # one rank of [sharded] or [mesh-serve], started by launch/mhrun.py
+    if any(w in sys.argv for w in ("--sharded-worker", "--mesh-serve-worker",
+                                   "--mesh-train-worker")):
+        # one rank of [sharded], [mesh-serve] or [mesh-train], started by launch/mhrun.py
         sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
         from repro_torch.launch import mhrun
 
         return mhrun.worker_main(sys.argv[-1], {"sharded": sharded_worker,
                                                 "mesh_serve": mesh_serve_worker,
+                                                "mesh_train": mesh_train_worker,
                                                 "gloo_probe": gloo_probe_worker})
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bot-times", action="store_true",
@@ -3724,6 +3986,9 @@ def main() -> int:
     parser.add_argument("--mesh-serve", action="store_true",
                         help="only run the four-rank serving phase under SERVE_RULES "
                         "(mesh_serve_only)")
+    parser.add_argument("--mesh-train", action="store_true",
+                        help="only run the four-rank training phase under TRAIN_RULES "
+                        "(mesh_train_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -3766,6 +4031,7 @@ def main() -> int:
                           (args.zoo, zoo_only),
                           (args.sharded, sharded_only),
                           (args.mesh_serve, mesh_serve_only),
+                          (args.mesh_train, mesh_train_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -3796,6 +4062,7 @@ def main() -> int:
     for name, n in phase_sharded(torch, np, dev, atm, hurricane, card).items():
         launches[name] += n
     phase_mesh_serve(torch, np, dev, card)
+    phase_mesh_train(torch, np, dev, card)
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)

@@ -19,7 +19,7 @@ On a machine without a GPU, at the reduced smoke size:
 Parameters are drawn from a `torch.Generator` seeded 0 on the device.
 In a job of more than one rank (`runtime.dist.initialize`), `main` serves
 the static batch under a mesh as the reference does: the production mesh,
-params laid out by `SERVE_RULES` (`place_params`), the prompts by
+params laid out by `SERVE_RULES` (`sharding.place_params`), the prompts by
 `launch.dryrun.batch_shardings` and the cache by `cache_sharding`, all
 as DTensors; `run_static(..., mesh=)` does the same on any mesh (e.g.
 `launch.mesh.make_emulated_mesh((2, 2))`). One rank runs unsharded.
@@ -148,17 +148,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def place_params(model, mesh, rules=sharding.SERVE_RULES) -> dict:
-    """The params of `model` from a generator seeded 0 on the model's
-    device, each leaf drawn whole in `init_tree`'s order and kept as this
-    rank's box of its `tree_shardings(rules)` layout: the unsharded draw's
-    values, laid out on `mesh`."""
-    desc = model.desc()
-    shardings = sharding.tree_shardings(rnn.axes_tree(desc), rules, mesh, rnn.abstract_tree(desc))
-    gen = torch.Generator(device=model.device).manual_seed(0)
-    return rnn.init_tree(desc, gen, device=model.device, shardings=shardings)
-
-
 def build(args, mesh=None):
     """(cfg, model, params) for `args`: the config (reduced with --smoke),
     the model on --device, and parameters from a generator seeded 0 (laid
@@ -169,7 +158,7 @@ def build(args, mesh=None):
         cfg = reduced_for_smoke(cfg)
     model = build_model(cfg, device=dev)
     if mesh is not None:
-        return cfg, model, place_params(model, mesh)
+        return cfg, model, sharding.place_params(model, mesh, sharding.SERVE_RULES)
     params = rnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
     return cfg, model, params
 
@@ -197,8 +186,8 @@ def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULE
     timed between synchronizes.
 
     With `mesh`, everything runs under `sharding.activate(mesh, rules)`:
-    `params` must be laid out on it (`place_params`); the prompts are laid
-    out by `batch_shardings` and the cache by `cache_sharding`, and the
+    `params` must be laid out on it (`sharding.place_params`); the prompts
+    are laid out by `batch_shardings` and the cache by `cache_sharding`, and the
     tokens are gathered to every rank at the end. `teacher` (B, n) feeds
     decode step i < n the token `teacher[:, i]` instead of the previous
     step's (the greedy tokens are still returned). `keep` adds the

@@ -13,16 +13,25 @@ Features: deterministic data pipeline, AdamW, per-layer activation
 checkpointing, lossy-compressed checkpoints with Algorithm-1 selection,
 resume from the latest checkpoint, error-feedback gradient compression,
 async checkpoint writes. Parameters are drawn from a `torch.Generator`
-seeded 0 on the device. The reference's mesh and sharding rules are a
-single-device no-op here and are left out (training under a mesh is
-ROADMAP queue A item 14c). The train step updates the params and optimizer state in place
-(the reference donates them to its jitted step); `async_save` snapshots
-them on the device before the next step runs.
+seeded 0 on the device. The train step updates the params and optimizer
+state in place (the reference donates them to its jitted step);
+`async_save` snapshots them on the device before the next step runs.
+
+In a job of more than one rank (`runtime.dist.initialize`), `main` trains
+under a mesh as the reference does: the production mesh, params laid out
+by `TRAIN_RULES` (FSDP over 'data', TP over 'model';
+`sharding.place_params`), each batch by `launch.dryrun.batch_shardings`,
+the step under `sharding.activate`, all as DTensors; saves gather into the flat layout
+and a resume places each leaf as its template is (`restore_tree(shardings=)`).
+`run(..., mesh=, rules=)` does the same on any mesh (e.g.
+`launch.mesh.make_emulated_mesh((2, 2))`) and under either rule set
+(`TRAIN_RULES`, `TRAIN_RULES_TP`). One rank trains unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -31,12 +40,14 @@ import torch
 from .. import device as _device
 from ..checkpoint import CheckpointConfig, CheckpointManager
 from ..configs import get_config
-from ..core import Policy, PolicySet
+from ..core import Policy, PolicySet, pytree
 from ..data import DataConfig, synthetic_batch
 from ..models import build_model, reduced_for_smoke
 from ..models import nn as rnn
 from ..optim import AdamWConfig, GradCompressConfig
+from ..runtime import dist, sharding
 from ..runtime.steps import init_opt_state, make_train_step
+from .dryrun import batch_shardings
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -66,12 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _to_device(batch: dict, dev: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-
-
-def main(argv=None) -> dict:
-    args = parse_args(argv)
+def build(args):
+    """(cfg, model) for `args`: the config (reduced with --smoke, then
+    --d-model and --n-layers) and the model on --device."""
     dev = _device.resolve(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -82,13 +90,39 @@ def main(argv=None) -> dict:
         )
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    model = build_model(cfg, device=dev)
+    return cfg, build_model(cfg, device=dev)
 
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    cfg, model = build(args)
+    if dist.is_multihost():
+        from .mesh import make_production_mesh
+
+        mesh = make_production_mesh(device=args.device)
+        params = sharding.place_params(model, mesh, sharding.TRAIN_RULES)
+        return run(args, cfg, model, params, mesh=mesh)
+    dev = model.device
+    params = rnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    return run(args, cfg, model, params)
+
+
+def run(args, cfg, model, params, *, mesh=None, rules=sharding.TRAIN_RULES) -> dict:
+    """`args.steps` train steps of `model` from `params` on synthetic
+    batches, with the checkpoints and the resume `args` asks for.
+
+    With `mesh`, the steps and saves run under `sharding.activate(mesh,
+    rules)`: `params` must be laid out on it (`sharding.place_params(model,
+    mesh, rules)`), the optimizer state is laid out like them, each batch by
+    `batch_shardings`, and a resume places each leaf as the template's
+    is. The result holds the losses (one a step, the same on every rank),
+    the seconds of the step loop (saves included) and of each step (host
+    clock; a step ends reading its loss), the params and the optimizer
+    state."""
+    dev = model.device
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=min(20, args.steps // 5))
     gc_cfg = GradCompressConfig() if args.compress_grads else None
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
-
-    params = rnn.init_tree(model.desc(), torch.Generator(device=dev).manual_seed(0), device=dev)
     opt_state = init_opt_state(params, gc_cfg)
     start_step = 0
 
@@ -106,38 +140,52 @@ def main(argv=None) -> dict:
         )
         if args.resume and mgr.latest_step() is not None:
             tmpl = {"params": params, "opt": opt_state["adam"]}
-            start_step, restored = mgr.restore_tree(tmpl)
+            shardings = None if mesh is None else pytree.tree_map(sharding.layout_of, tmpl)
+            start_step, restored = mgr.restore_tree(tmpl, shardings=shardings)
             params = restored["params"]
             opt_state["adam"] = restored["opt"]
             print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
+    lay = None
+    if mesh is not None:
+        shapes = {k: torch.empty(args.batch, args.seq, device="meta") for k in ("tokens", "labels")}
+        lay = batch_shardings(shapes, mesh, args.batch)
+
+    def place(batch: dict) -> dict:
+        out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        return out if lay is None else {k: dist.put_global(v, lay[k]) for k, v in out.items()}
+
     step_fn = make_train_step(model, opt_cfg, gc_cfg)
-    losses = []
-    t0 = time.time()
-    for step in range(start_step, args.steps):
-        batch = _to_device(synthetic_batch(dcfg, step), dev)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses.append(float(metrics["loss"]))
-        if step % args.log_every == 0 or step == args.steps - 1:
-            extra = ""
-            if "wire_bits_per_value" in metrics:
-                extra = f" wire_bits={float(metrics['wire_bits_per_value']):.2f}"
-            print(
-                f"step {step:5d} loss {losses[-1]:.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f}{extra}",
-                flush=True,
-            )
-        if mgr is not None and (step + 1) % args.ckpt_every == 0:
-            mgr.async_save(step + 1, {"params": params, "opt": opt_state["adam"]})
-    if mgr is not None:
-        mgr.wait()
-        mgr.save(args.steps, {"params": params, "opt": opt_state["adam"]})
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.time() - t0
+    losses, step_s = [], []
+    with sharding.activate(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        t0 = time.time()
+        for step in range(start_step, args.steps):
+            t1 = time.time()
+            batch = place(synthetic_batch(dcfg, step))
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_s.append(time.time() - t1)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                extra = ""
+                if "wire_bits_per_value" in metrics:
+                    extra = f" wire_bits={float(metrics['wire_bits_per_value']):.2f}"
+                print(
+                    f"step {step:5d} loss {losses[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f}{extra}",
+                    flush=True,
+                )
+            if mgr is not None and (step + 1) % args.ckpt_every == 0:
+                mgr.async_save(step + 1, {"params": params, "opt": opt_state["adam"]})
+        if mgr is not None:
+            mgr.wait()
+            mgr.save(args.steps, {"params": params, "opt": opt_state["adam"]})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.time() - t0
     print(f"[done] {args.steps - start_step} steps in {dt:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
-    return {"losses": losses, "seconds": dt, "params": params}
+    return {"losses": losses, "seconds": dt, "step_s": step_s, "params": params,
+            "opt": opt_state}
 
 
 if __name__ == "__main__":

@@ -27,9 +27,10 @@ the returned cache holds the same tensors with the new values written,
 and a new position clock.
 
 Under a mesh (`runtime.sharding.activate`), the dense decoders
-(`TransformerLM` without MoE, MLA or a frontend) take params, tokens and
-caches as DTensors: `init_cache` lays the cache out by
-`runtime.sharding.cache_sharding`. The other families raise there.
+(`TransformerLM` without MoE, MLA or a frontend) take params, tokens,
+labels and caches as DTensors: `init_cache` lays the cache out by
+`runtime.sharding.cache_sharding`, and `loss` is taken on the logits'
+batch and vocab shards (`_sharded_loss`). The other families raise there.
 """
 
 from __future__ import annotations
@@ -56,6 +57,56 @@ def _stack_specs(tree: dict, *lead: int) -> dict:
     `lead`, without a per-layer 'len'."""
     return {k: _stack_specs(s, *lead) if isinstance(s, dict) else TensorSpec(lead + s.shape, s.dtype)
             for k, s in tree.items() if k != "len"}
+
+
+def _sharded_loss(logits, labels):
+    """`BaseLM.loss` on DTensor logits (B, L, V), split by batch and vocab,
+    and labels laid out by `launch.dryrun.batch_shardings`, taken on each
+    rank's shards: the row maximum as an all-reduce max (held constant:
+    it cancels), the log of the summed exponentials and the label's logit
+    (a masked pick in the rank's vocab rows) as pending sums over the
+    vocab's mesh dims, and the masked sums over the batch's. Loss and
+    tokens come out replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..runtime import sharding
+
+    mesh = logits.device_mesh
+    if not all(p in (Shard(0), Shard(2)) or isinstance(p, Replicate) for p in logits.placements):
+        raise ValueError(f"the loss takes logits split by batch and vocab, got {logits.placements}")
+    labels = sharding.lay_out(labels, sharding.NamedSharding(mesh, tuple(
+        Shard(0) if p == Shard(0) else Replicate() for p in logits.placements)))
+    vocab = tuple(Partial() if p == Shard(2) else Replicate() for p in logits.placements)
+    rows = tuple(Partial() if p == Shard(0) else Replicate() for p in logits.placements)
+    # shape (B, L), laid out by the batch split and pending over the vocab's
+    pend = tuple(Shard(0) if p == Shard(0) else q for p, q in zip(logits.placements, vocab))
+    shape = tuple(logits.shape[:2])
+
+    def summed(local, placements, shape):
+        lay = sharding.NamedSharding(mesh, placements)
+        return nn.reduce_partial(sharding.from_local(local, lay, shape))
+
+    local = logits.to_local()
+    start, _ = sharding.local_box(sharding.NamedSharding(mesh, tuple(logits.placements)),
+                                  tuple(logits.shape))
+    top = sharding.from_local(torch.amax(local.detach(), dim=-1),
+                              sharding.NamedSharding(mesh, tuple(
+                                  Partial("max") if isinstance(q, Partial) else q for q in pend)),
+                              shape)
+    top = nn.reduce_partial(top).to_local()
+    sumexp = summed(torch.sum(torch.exp(local - top[..., None]), dim=-1), pend, shape).to_local()
+    lab = labels.to_local()
+    ids = torch.clamp(lab, min=0).long() - start[2]
+    hit = (ids >= 0) & (ids < local.shape[-1])
+    picked = torch.gather(local, -1, ids.clamp(0, local.shape[-1] - 1)[..., None])[..., 0]
+    picked = summed(torch.where(hit, picked, torch.zeros((), dtype=local.dtype,
+                                                         device=local.device)), pend, shape)
+    nll = top + torch.log(sumexp) - picked.to_local()
+    mask = (lab >= 0).to(torch.float32)
+    num = summed(torch.sum(nll * mask), rows, ())
+    den = summed(torch.sum(mask), rows, ())
+    loss = num / torch.clamp(den, min=1.0)
+    return loss, {"loss": loss, "tokens": den}
 
 
 class BaseLM:
@@ -117,6 +168,8 @@ class BaseLM:
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
             # logits cover [patches, tokens]; labels only the token part
             logits = logits[:, -labels.shape[1]:]
+        if nn.is_sharded(logits):
+            return _sharded_loss(logits, labels)
         mask = (labels >= 0).to(torch.float32)
         lab = torch.clamp(labels, min=0).long()
         logp = torch.log_softmax(logits, dim=-1)

@@ -10,11 +10,15 @@ the same weights.
 The layers are plain functions on tensors.
 
 Under a mesh (`runtime.sharding.activate`) the same layers take DTensors:
-the products, norms and pointwise ops run through DTensor's sharding
-propagation, a product whose contraction is split adds its partials in
-float32 over the mesh and rounds once to the compute dtype, and rope and
-attention, which are independent per batch row and per head (the only
-dims the serving rules split there), run on each rank's shards.
+norms and pointwise ops run through DTensor's sharding propagation; the
+products, the lookup, rope and attention, which are independent per
+batch row and per head (the only dims the rules split there), run on each
+rank's shards, each local operand declaring its gradient's layout, so
+autograd plans no collective of DTensor's own. A product whose
+contraction is split adds its partials in float32 over the mesh and
+rounds once to the compute dtype; a weight split along a dim the product
+cannot use (FSDP's 'embed' over 'data') is gathered first, its gradient
+coming back as a reduce-scatter (`runtime.sharding._GatherSplit`).
 
 Numerics follow the reference: activations in the compute dtype of `x`
 (bfloat16 by default), every weight cast to it at each call (`dense`),
@@ -297,16 +301,87 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d_in) @ w: (d_in, d_out) in the compute dtype of x (the
     weight is cast at every call, as in the reference).
 
-    A DTensor `x` split along d_in (a row-parallel product) gives partial
-    sums: they are formed and added over the mesh in float32 and rounded
-    once to the compute dtype, so every rank holds the same bits and the
-    result differs from the unsharded product only by the order of its
-    float32 additions."""
-    wc = w.to(x.dtype)
-    if is_sharded(x) and _split_dims(x, x.ndim - 1):
-        y = torch.matmul(x.to(torch.float32), wc.to(torch.float32))
-        return reduce_partial(y).to(x.dtype)
-    return torch.matmul(x, wc)
+    DTensors run shard by shard (`_dense_sharded`). A product whose
+    contraction is split (row-parallel) gives partial sums: they are
+    formed and added over the mesh in float32 and rounded once to the
+    compute dtype, so every rank holds the same bits and the result
+    differs from the unsharded product only by the order of its float32
+    additions."""
+    if is_sharded(x) or is_sharded(w):
+        return _dense_sharded(x, w)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def _dense_sharded(x, w):
+    """`dense` on DTensors, as one local product a rank. The weight first
+    loses every split the product cannot use (`_gathered_weight`). Then,
+    per mesh dim, (x, w) is one of: x split by a leading dim and w whole
+    (the output and x's gradient split alike, w's gradient pending),
+    x whole and w split by columns (column-parallel: the output split by
+    columns, x's gradient pending), both split along the contraction
+    (row-parallel: the output pending), or both whole. Each local operand
+    declares its gradient's layout (`to_local(grad_placements=)`), so
+    autograd needs no collective of DTensor's own here; the pending sums
+    are added where they are consumed."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..runtime import sharding as _sh
+
+    if not is_sharded(x):
+        raise TypeError("a sharded weight takes activations laid out on its mesh")
+    w = _gathered_weight(x, w)
+    last = x.ndim - 1
+    out, gx, gw = [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px == Shard(last):  # split contraction: the rules split w's rows alike
+            if pw != Shard(0):
+                raise NotImplementedError(f"x laid out {x.placements}, w {w.placements}")
+            out.append(Partial())
+            gx.append(px)
+            gw.append(pw)
+        elif isinstance(px, Shard):
+            out.append(px)
+            gx.append(px)
+            gw.append(Partial())
+        elif pw == Shard(1):
+            out.append(Shard(last))
+            gx.append(Partial())
+            gw.append(pw)
+        else:
+            out.append(Replicate())
+            gx.append(px)
+            gw.append(pw)
+    xl = x.to_local(grad_placements=tuple(gx))
+    wl = w.to_local(grad_placements=tuple(gw)).to(x.dtype)
+    shape = tuple(x.shape[:-1]) + (w.shape[-1],)
+    if any(p.is_partial() for p in out):
+        y = torch.matmul(xl.to(torch.float32), wl.to(torch.float32))
+        return reduce_partial(_sh.from_local(y, _sh.NamedSharding(x.device_mesh, tuple(out)),
+                                             shape)).to(x.dtype)
+    return _sh.from_local(torch.matmul(xl, wl), _sh.NamedSharding(x.device_mesh, tuple(out)), shape)
+
+
+def _gathered_weight(x, w):
+    """Weight `w` (d_in, d_out) with every split the product with `x` does
+    not take gathered (`runtime.sharding.redistribute`, which carries the
+    gradient): a d_in split stays where `x` is split along its last dim
+    over the same mesh dim (row-parallel), a d_out split where `x` is whole
+    over it (column-parallel)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    keep = []
+    for j, p in enumerate(w.placements):
+        xp = x.placements[j] if is_sharded(x) else Replicate()
+        if isinstance(p, Shard):
+            row = p.dim == w.ndim - 2 and xp == Shard(x.ndim - 1)
+            col = p.dim == w.ndim - 1 and isinstance(xp, Replicate)
+            p = p if row or col else Replicate()
+        keep.append(p)
+    if tuple(keep) == tuple(w.placements):
+        return w
+    from ..runtime import sharding as _sh
+
+    return _sh.redistribute(w, tuple(keep))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -314,20 +389,31 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     looks up, on each rank, the tokens its rows hold and gives zeros for
     the rest: a pending sum over the splitting mesh dims (`reduce_partial`
     adds it exactly, one term being nonzero), laid out by the tokens' batch
-    split elsewhere. The tokens must be whole along the vocab split."""
+    split elsewhere. The tokens must be whole along the vocab split. A
+    table split along its columns (FSDP, `TRAIN_RULES`) is gathered along
+    them first. The table's gradient is each rank's rows' scatter of its
+    tokens' gradients, a pending sum over the mesh dims that split the
+    tokens but not the table."""
     if not is_sharded(table):
         return table[tokens]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     if not is_sharded(tokens):
         raise TypeError("a sharded table takes tokens laid out on its mesh "
                         "(launch.dryrun.batch_shardings)")
+    if _split_dims(table, 1):
+        from ..runtime import sharding as _sh
+
+        table = _sh.redistribute(table, tuple(Replicate() if p == Shard(1) else p
+                                              for p in table.placements))
     rows = _split_dims(table, 0)
-    if _split_dims(table, 1) or any(not isinstance(tokens.placements[j], Replicate) for j in rows):
+    if any(not isinstance(tokens.placements[j], Replicate) for j in rows):
         raise NotImplementedError(
             f"a lookup in a table laid out {table.placements} by tokens laid out "
-            f"{tokens.placements} (the serving rules split the table's rows only)")
-    local = table.to_local()
+            f"{tokens.placements} (the tokens must be whole along the vocab split)")
+    grads = tuple(Partial() if isinstance(p, Replicate) and isinstance(t, Shard) else p
+                  for p, t in zip(table.placements, tokens.placements))
+    local = table.to_local(grad_placements=grads)
     start, _ = _box(table)
     ids = tokens.to_local().long() - start[0]
     hit = (ids >= 0) & (ids < local.shape[0])
@@ -486,7 +572,7 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
     and, where their heads divide, its head split; each rank attends its
     own rows and query heads against the KV heads those need (the GQA
     group's slice of the local K/V)."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     if _is_vector(q_offset) or _is_vector(kv_len):
         raise NotImplementedError(
@@ -503,7 +589,11 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
     from ..runtime import sharding as _sh
 
     k, v = _sh.redistribute(k, want), _sh.redistribute(v, want)
-    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    # a K/V head that several ranks' query heads read gets each rank's part
+    # of its gradient: a pending sum over the mesh dims that split q only
+    grads = tuple(Partial() if isinstance(p, Replicate) and isinstance(pq, Shard) else p
+                  for p, pq in zip(k.placements, q.placements))
+    ql, kl, vl = q.to_local(), k.to_local(grad_placements=grads), v.to_local(grad_placements=grads)
     h0, hq_loc = _box(q)[0][2], ql.shape[2]
     g0 = _box(k)[0][2]
     if hq_loc % rep == 0 and h0 % rep == 0:

@@ -5,6 +5,8 @@ the step count is a 0-d int32 tensor, and the clip scale, the learning
 rate and the bias corrections are 0-d tensors, so an update never waits
 for the device. `update` writes the new params, m and v into the tensors
 it was given (the reference's jitted step donates them) and returns them.
+DTensor leaves (a train step under a mesh) are updated shard by shard;
+the global norm crosses the ranks (`global_norm`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core import pytree
+from ..runtime import dist, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,22 +55,39 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _zeros(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-
-
 def init(params: Any) -> dict:
-    """Zero moments shaped like `params` (float32) and step 0, on the
-    params' device."""
+    """Zero moments shaped like `params` (float32; a DTensor leaf's laid out
+    like it) and step 0, on the params' device."""
     leaves = pytree.leaves(params)
-    dev = leaves[0].device if leaves else None
-    return {"m": pytree.tree_map(_zeros, params), "v": pytree.tree_map(_zeros, params),
+    dev = None
+    if leaves:
+        dev = (sharding.mesh_device(leaves[0].device_mesh) if dist.is_dtensor(leaves[0])
+               else leaves[0].device)
+    return {"m": pytree.tree_map(lambda p: sharding.zeros_like(p, torch.float32), params),
+            "v": pytree.tree_map(lambda p: sharding.zeros_like(p, torch.float32), params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in pytree.leaves(tree))
-    return torch.sqrt(sq)
+    """sqrt of the sum of squares of every leaf, the leaves added in tree
+    order. Over DTensor leaves, each rank sums the squares of the unique
+    shards it owns (and rank 0 those of any plain leaf), and one
+    collective adds the ranks' sums in rank order (`dist.psum`): the same
+    bits on every rank."""
+    leaves = pytree.leaves(tree)
+    sharded = any(dist.is_dtensor(g) for g in leaves)
+
+    def mine(g) -> torch.Tensor:
+        own = not sharded or dist.process_index() == 0
+        if dist.is_dtensor(g):
+            own, g = sharding.owns_shard(g), g.to_local()
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        return s if own else torch.zeros_like(s)
+
+    per_leaf = torch.stack([mine(g) for g in leaves])
+    if sharded:
+        per_leaf = dist.psum(per_leaf)
+    return torch.sqrt(sum(per_leaf.unbind()))
 
 
 @torch.no_grad()
@@ -84,6 +104,8 @@ def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any) -> tuple[Any,
     bc2 = 1 - torch.pow(b2, stepf)
     for p, g, m, v in zip(pytree.leaves(params), pytree.leaves(grads),
                           pytree.leaves(state["m"]), pytree.leaves(state["v"])):
+        # elementwise: a DTensor leaf is updated on each rank's shard
+        p, g, m, v = (dist.local(t) for t in (p, g, m, v))
         # torch.add(a, b, alpha=c) is one fused multiply-add, b * c + a, as
         # the reference's compiled program contracts these lines
         g = g.to(torch.float32) * scale

@@ -36,6 +36,7 @@ from .. import device as _device
 from ..core import pytree
 from ..core.policy import Policy
 from ..core.xla_f32 import _xla_log2
+from ..runtime import dist, sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +63,9 @@ class GradCompressConfig:
 
 
 def init(params: Any) -> dict:
-    """Zero residuals shaped like `params`, float32, on each leaf's device."""
-    return {
-        "residual": pytree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params
-        )
-    }
+    """Zero residuals shaped like `params`, float32, on each leaf's device
+    (laid out like a DTensor leaf)."""
+    return {"residual": pytree.tree_map(lambda p: sharding.zeros_like(p, torch.float32), params)}
 
 
 #: values a float64 slice of the residual's multiply-add holds at once
@@ -87,9 +85,23 @@ def _fma_residual(g: torch.Tensor, k: torch.Tensor, delta: torch.Tensor) -> torc
 
 
 def _leaf(g: torch.Tensor, r: torch.Tensor, eb_rel: float, half: int):
-    """(dequantized, residual, code entropy in bits) of one leaf."""
+    """(dequantized, residual, code entropy in bits) of one leaf.
+
+    A DTensor leaf (its residual laid out alike) is taken on each rank's
+    shard with the leaf's statistics: its max and min over every rank (an
+    all-reduce, exact in any order), and the histogram summed, exact in
+    int64, over the ranks that own a unique shard (a replica counts
+    once). The dequantized gradient and the residual keep its layout."""
+    layout = sharding.layout_of(g)
+    sharded = layout is not None
+    if sharded:
+        shape, owner = g.shape, sharding.owns_shard(g)
+        g, r = g.to_local(), r.to_local()
     g = g.to(torch.float32) + r
-    vr = torch.clamp(torch.max(g) - torch.min(g), min=1e-12)
+    hi_lo = torch.stack([torch.max(g), -torch.min(g)])
+    if sharded:
+        hi_lo = dist.pmax(hi_lo)
+    vr = torch.clamp(hi_lo[0] + hi_lo[1], min=1e-12)  # max + (-min) is max - min, bit for bit
     delta = 2.0 * (vr * eb_rel)
     k = torch.round(g / delta)  # a true division; round half to even
     gq = k * delta
@@ -97,6 +109,10 @@ def _leaf(g: torch.Tensor, r: torch.Tensor, eb_rel: float, half: int):
     kc = torch.clamp(k, -half, half) + half
     codes = _device.to_int_saturating(kc).reshape(-1)
     counts = torch.bincount(codes, minlength=2 * half + 1)
+    if sharded:
+        counts = dist.psum(counts if owner else torch.zeros_like(counts))
+        gq = sharding.from_local(gq, layout, shape)
+        resid = sharding.from_local(resid, layout, shape)
     p = counts.to(torch.float32) / torch.clamp(counts.sum(), min=1).to(torch.float32)
     plogp = p * _xla_log2(torch.clamp(p, min=1e-30))
     ent = -torch.sum(torch.where(p > 0, plogp, 0.0))
@@ -108,8 +124,10 @@ def compress(cfg: GradCompressConfig, grads: Any, state: dict) -> tuple[Any, dic
 
     Leaves are taken in the reference's order (`core/pytree.py`); the new
     residuals are fresh tensors (the caller may copy them into the old
-    ones). Nothing here waits for the device but `torch.bincount`, which
-    reads its input's maximum on the host."""
+    ones). On one process, nothing here waits for the device but
+    `torch.bincount`, which reads its input's maximum on the host. A
+    DTensor leaf also waits for its two collectives (`_leaf`: the range
+    and the histogram cross the ranks through the host under gloo)."""
     half = 2 ** (cfg.hist_bits - 1) - 1
     flat, treedef = pytree.flatten_with_path(grads)
     rflat, rdef = pytree.flatten_with_path(state["residual"])

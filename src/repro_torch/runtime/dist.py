@@ -218,6 +218,16 @@ def psum(t: torch.Tensor) -> torch.Tensor:
     return src.to(t.device)
 
 
+def pmax(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of `t` over every rank (an all-reduce, exact
+    in any order)."""
+    if not is_multihost():
+        return t
+    src = _staged(t).clone()
+    torch.distributed.all_reduce(src, op=torch.distributed.ReduceOp.MAX)
+    return src.to(t.device)
+
+
 def halo(plane: torch.Tensor, prev_rank: int | None, next_rank: int | None) -> torch.Tensor:
     """Send `plane` to `next_rank` and receive the previous rank's plane
     from `prev_rank` (zeros when there is none: the global boundary), the
@@ -243,6 +253,12 @@ def is_dtensor(x: Any) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def local(x: Any) -> Any:
+    """A DTensor's shard on this rank (its storage: in-place writes reach
+    the DTensor); anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def spans_processes(mesh) -> bool:
@@ -377,7 +393,9 @@ __all__ = [
     "is_multihost",
     "key_value_get",
     "key_value_set",
+    "local",
     "owner_host",
+    "pmax",
     "process_count",
     "process_index",
     "psum",

@@ -178,6 +178,19 @@ def tree_shardings(axes_tree: Any, rules: dict, mesh, abstract: Any = None) -> A
     return _tree_map(_fit, specs, abstract)
 
 
+def place_params(model, mesh, rules: dict) -> dict:
+    """The params of `model` from a generator seeded 0 on the model's
+    device, each leaf drawn whole in `init_tree`'s order and kept as this
+    rank's box of its `tree_shardings(rules)` layout: the unsharded draw's
+    values, laid out on `mesh`."""
+    from ..models import nn
+
+    desc = model.desc()
+    shardings = tree_shardings(nn.axes_tree(desc), rules, mesh, nn.abstract_tree(desc))
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    return nn.init_tree(desc, gen, device=model.device, shardings=shardings)
+
+
 def cache_sharding(
     cache_desc: Any,
     mesh,
@@ -254,31 +267,120 @@ def zeros(shape, dtype: torch.dtype, sharding: NamedSharding) -> Any:
     return from_local(local, sharding, shape)
 
 
-def _gather_split(x: Any, j: int) -> Any:
-    """DTensor `x` with its split over mesh dim `j` gathered (Replicate
-    there), through `dist.all_gather` on that dim's group: staged through
-    the host under gloo, whose all-gather of CUDA tensors crashes the
-    process (PERF.md §6). Shards of uneven size are padded to the
-    largest and cut back."""
-    from torch.distributed.tensor import Replicate, Shard
-
+def zeros_like(x: Any, dtype: torch.dtype) -> Any:
+    """Zeros of `dtype` shaped like tensor `x` on its device; for a DTensor,
+    laid out like it (each rank allocates its box)."""
     from . import dist
 
-    mesh, d = x.device_mesh, x.placements[j].dim
-    if any(isinstance(p, Shard) and p.dim == d for i, p in enumerate(x.placements) if i != j):
-        raise NotImplementedError(f"dim {d} split over two mesh dims: {x.placements}")
-    n, extent = mesh.size(j), int(x.shape[d])
-    chunk = -(-extent // n)
-    local = x.to_local()
-    if local.shape[d] < chunk:
+    if dist.is_dtensor(x):
+        return zeros(x.shape, dtype, layout_of(x))
+    return torch.zeros(x.shape, dtype=dtype, device=x.device)
+
+
+def layout_of(x: Any) -> NamedSharding | None:
+    """A DTensor's `NamedSharding` (None for anything else)."""
+    from . import dist
+
+    if not dist.is_dtensor(x):
+        return None
+    return NamedSharding(x.device_mesh, tuple(x.placements))
+
+
+def _chunk(extent: int, n: int, c: int) -> tuple[int, int]:
+    """(start, length) of chunk `c` of `n` ceil-sized chunks of `extent`
+    (torch's chunking: the last ones may be short or empty)."""
+    size = -(-extent // n)
+    start = min(c * size, extent)
+    return start, min(size, extent - start)
+
+
+def _gather_local(local: torch.Tensor, mesh, j: int, d: int, extent: int) -> torch.Tensor:
+    """The whole of dim `d` from the `local` shards the ranks of mesh dim
+    `j` hold, through `dist.all_gather` on that dim's group: staged through
+    the host under gloo, whose all-gather of CUDA tensors crashes the
+    process (PERF.md §6). Shards of uneven size are padded to the largest
+    and cut back."""
+    from . import dist
+
+    n = mesh.size(j)
+    size = -(-extent // n)
+    if local.shape[d] < size:
         pad = list(local.shape)
-        pad[d] = chunk - local.shape[d]
+        pad[d] = size - local.shape[d]
         local = torch.cat([local, local.new_zeros(pad)], dim=d)
     parts = dist.all_gather(local.contiguous(), group=mesh.get_group(j))
-    whole = torch.cat([parts[c].narrow(d, 0, max(0, min(chunk, extent - c * chunk)))
-                       for c in range(n)], dim=d)
-    gathered = tuple(Replicate() if i == j else p for i, p in enumerate(x.placements))
-    return from_local(whole, NamedSharding(mesh, gathered), x.shape)
+    return torch.cat([parts[c].narrow(d, 0, _chunk(extent, n, c)[1]) for c in range(n)], dim=d)
+
+
+def _reduce_scatter_local(local: torch.Tensor, mesh, j: int, d: int) -> torch.Tensor:
+    """This rank's chunk of dim `d` of the sum of `local` over the ranks of
+    mesh dim `j`: `reduce_scatter_tensor` on the dim's group, staged
+    through the host under gloo as `_gather_local` is, padded to equal
+    chunks and cut back."""
+    from . import dist
+
+    n, c = mesh.size(j), mesh.get_local_rank(j)
+    if n == 1:
+        return local
+    extent = local.shape[d]
+    _, length = _chunk(extent, n, c)
+    size = -(-extent // n)
+    src = dist._staged(local)
+    if size * n > extent:
+        pad = list(src.shape)
+        pad[d] = size * n - extent
+        src = torch.cat([src, src.new_zeros(pad)], dim=d)
+    # chunks laid out along dim 0, as the collective splits its input
+    src = src.movedim(d, 0).contiguous()
+    out = src.new_empty((size,) + tuple(src.shape[1:]))
+    torch.distributed.reduce_scatter_tensor(out, src, group=mesh.get_group(j))
+    return out.narrow(0, 0, length).movedim(0, d).to(local.device).contiguous()
+
+
+class _GatherSplit(torch.autograd.Function):
+    """Shard(d) -> Replicate over mesh dim `j`, with its gradient: the
+    forward gathers the shards (`_gather_local`); the backward keeps this
+    rank's chunk of the gradient, summed over the dim's group first where
+    the gradient is a pending sum there (a reduce-scatter,
+    `_reduce_scatter_local`), so FSDP's gathered weights and the gathered
+    activations of `split_heads` carry their gradients."""
+
+    @staticmethod
+    def forward(ctx, x, j: int):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, d = x.device_mesh, x.placements[j].dim
+        if any(isinstance(p, Shard) and p.dim == d for i, p in enumerate(x.placements) if i != j):
+            raise NotImplementedError(f"dim {d} split over two mesh dims: {x.placements}")
+        ctx.j, ctx.d = j, d
+        whole = _gather_local(x.to_local(), mesh, j, d, int(x.shape[d]))
+        gathered = tuple(Replicate() if i == j else p for i, p in enumerate(x.placements))
+        return from_local(whole, NamedSharding(mesh, gathered), x.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate, Shard
+
+        j, d = ctx.j, ctx.d
+        mesh, p = grad.device_mesh, grad.placements[j]
+        if any(isinstance(q, Shard) and q.dim == d for q in grad.placements):
+            raise NotImplementedError(f"a gradient split along the gathered dim: {grad.placements}")
+        local = grad.to_local()
+        if p.is_partial():
+            local = _reduce_scatter_local(local, mesh, j, d)
+        elif isinstance(p, Replicate):  # every rank holds the whole gradient
+            start, length = _chunk(int(grad.shape[d]), mesh.size(j), mesh.get_local_rank(j))
+            local = local.narrow(d, start, length).contiguous()
+        else:
+            raise NotImplementedError(f"a gradient laid out {grad.placements} over mesh dim {j}")
+        placements = tuple(Shard(d) if i == j else q for i, q in enumerate(grad.placements))
+        return from_local(local, NamedSharding(mesh, placements), grad.shape), None
+
+
+def _gather_split(x: Any, j: int) -> Any:
+    """DTensor `x` with its split over mesh dim `j` gathered (Replicate
+    there), gradient included (`_GatherSplit`)."""
+    return _GatherSplit.apply(x, j)
 
 
 def redistribute(x: Any, placements: tuple) -> Any:
@@ -444,6 +546,17 @@ def unique_shards(x: Any) -> list[tuple[tuple[int, ...], tuple[int, ...], tuple[
     ]
 
 
+def owns_shard(x: Any) -> bool:
+    """Whether this process is the lowest rank among the replicas of its
+    shard of DTensor `x`: a statistic summed over the owners counts every
+    unique shard once."""
+    me = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    for _, _, ranks in unique_shards(x):
+        if me in ranks:
+            return ranks[0] == me
+    return False
+
+
 def shard_data(x: Any, rank: int) -> torch.Tensor:
     """`x`'s shard held by `rank`, which must be this process (no gather)."""
     me = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
@@ -463,11 +576,14 @@ __all__ = [
     "cache_sharding",
     "from_local",
     "lay_out",
+    "layout_of",
     "local_box",
     "mesh_device",
     "mesh_of",
     "mesh_shape",
     "neighbors",
+    "owns_shard",
+    "place_params",
     "placements_to_spec",
     "redistribute",
     "shard_box",
@@ -479,4 +595,5 @@ __all__ = [
     "tree_specs",
     "unique_shards",
     "zeros",
+    "zeros_like",
 ]

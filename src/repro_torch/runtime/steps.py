@@ -32,16 +32,18 @@ def make_train_step(model: BaseLM, opt_cfg: adamw.AdamWConfig,
     given tensors (a caller that needs the old values copies them first).
     The metrics are 0-d tensors on the device: 'loss', 'tokens',
     'grad_norm', 'lr', and 'wire_bits_per_value' when compressing.
+
+    Under a mesh (`runtime.sharding.activate`, DTensor params and a batch
+    laid out by `launch.dryrun.batch_shardings`), each gradient comes back
+    in its param's placements (a sum left pending over a mesh dim the
+    param is whole on is added there), the statistics that span a leaf
+    cross the ranks (`compress`, `adamw.global_norm`), each rank updates
+    its own shards, and the metrics are the same plain tensors on every
+    rank.
     """
 
     def step(params, opt_state, batch):
-        leaves, treedef = pytree.flatten_with_path(params)
-        # fresh leaves that share the params' storage, so the caller's
-        # tensors keep requires_grad off and take the update in place
-        tracked = [p.detach().requires_grad_(True) for _, p in leaves]
-        loss, aux = model.loss(pytree.unflatten(treedef, tracked), batch)
-        grads = pytree.unflatten(treedef, list(torch.autograd.grad(loss, tracked)))
-        metrics = {k: v.detach() for k, v in aux.items()}
+        grads, metrics = loss_and_grads(model, params, batch)
         new_state = {}
         with torch.no_grad():
             if grad_comp is not None:
@@ -57,6 +59,31 @@ def make_train_step(model: BaseLM, opt_cfg: adamw.AdamWConfig,
         return params, new_state, metrics
 
     return step
+
+
+def loss_and_grads(model: BaseLM, params: Any, batch: dict) -> tuple[Any, dict]:
+    """(gradients, metrics): the gradient of `model.loss` with respect to
+    every param leaf (a tree like `params`, each DTensor gradient in its
+    param's placements), and the loss's metrics as plain 0-d tensors
+    (the same on every rank under a mesh)."""
+    leaves, treedef = pytree.flatten_with_path(params)
+    # fresh leaves that share the params' storage, so the caller's
+    # tensors keep requires_grad off and take the update in place
+    tracked = [p.detach().requires_grad_(True) for _, p in leaves]
+    loss, aux = model.loss(pytree.unflatten(treedef, tracked), batch)
+    grads = [_laid_out_like(g, p) for g, p in zip(torch.autograd.grad(loss, tracked), tracked)]
+    return pytree.unflatten(treedef, grads), {k: nn.local_value(v.detach()) for k, v in aux.items()}
+
+
+def _laid_out_like(g, p):
+    """Gradient `g` in the placements of its param `p` (a DTensor whose
+    gradient autograd left in another layout: a pending sum, a split that
+    the param does not have); plain gradients as they are."""
+    if not nn.is_sharded(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    from . import sharding
+
+    return sharding.redistribute(g, tuple(p.placements))
 
 
 def init_opt_state(params: Any, grad_comp: compress.GradCompressConfig | None = None) -> dict:

@@ -1179,3 +1179,36 @@ def test_mesh_layer_two_ranks_on_card(cuda_device, tmp_path):
         assert p["prefill"] <= 2e-2 and p["decode"] <= 2e-2, p
         assert all(d <= 2e-2 for d in p["cache"].values()), p
     assert payloads[0]["prefill"] == payloads[1]["prefill"]
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_train_step_two_ranks_on_card(cuda_device, tmp_path, mesh):
+    """Two ranks share the card over gloo on a ('data', 'model') mesh:
+    smollm-360m at full width (2 layers, float32) takes its train step
+    under `runtime.sharding.activate(mesh, TRAIN_RULES)` and gives the
+    unsharded step's loss, gradients and metrics on the card. On (1, 2)
+    the products split over 'model', 15 query and 5 KV heads gathered with
+    their gradients, the loss taken on the vocab's shards; on (2, 1) FSDP:
+    the batch split over 'data', every weight gathered along its 'embed'
+    dim and its gradient reduce-scattered back. Bounds: 1e-5 of max for
+    the loss, 1e-4 of each gradient's max and of the grad norm (float32
+    partial sums added in other orders), wire bits 1e-3; after the
+    compressed step at most 0.5% of a leaf's values off by more than 1e-5
+    of its max (a gradient code that rounds to the other neighbour), none
+    by more than 2 lr."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    payloads = W.run_job("card_train", 2, tmp_path, args={"mesh": list(mesh)}, timeout_s=300.0)
+    for p in payloads:
+        assert p["backend"] == "gloo" and p["device"].startswith("cuda"), p
+        assert p["specs"]["blocks/attn/wq"] == [None, "data", "model"], p["specs"]
+        assert p["specs"]["embed"] == ["model", "data"], p["specs"]
+        assert p["loss"] <= 1e-5, p["loss"]
+        assert all(d <= 1e-4 for d in p["grads"].values()), p["grads"]
+        assert p["metrics"]["grad_norm"] <= 1e-4 and p["metrics"]["wire_bits_per_value"] <= 1e-3
+        for k, (share, most) in p["params"].items():
+            assert share <= 5e-3 and most <= 2.0, (k, share, most)

@@ -524,6 +524,141 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
             "tokens": {k: v["tokens"].tolist() for k, v in out.items()}}
 
 
+def _gather_backward_check(mesh) -> dict:
+    """The gradient through `sharding.redistribute`'s gather against the
+    plain gradient's box, on this rank: a (7, 6) float64 tensor split
+    unevenly over 'model' (chunks of 2, 2, 2, 1 on four ranks) gathered
+    (1) under a replicated gradient, a weighted sum, and (2) as FSDP
+    gathers a weight: its product with a (7, 7) input split by rows over
+    'model' too gives each rank part of the weight's gradient, pending over
+    'model', and each rank keeps its box of the sum (a reduce-scatter)."""
+    import torch
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(7, 6, generator=gen, dtype=torch.float64)
+    c = torch.randn(7, 6, generator=gen, dtype=torch.float64)
+    x = torch.randn(7, 7, generator=gen, dtype=torch.float64)
+    whole = tuple(Replicate() for _ in mesh.mesh.shape)
+    split = _lay(mesh, ("model", None))
+    out = {}
+    # (1) a replicated gradient: each rank keeps its rows of c
+    wd = dist.put_global(w, split).requires_grad_(True)
+    y = rsh.redistribute(wd, whole)
+    (g,) = torch.autograd.grad((y.to_local() * c).sum(), wd)
+    start, stop = rsh.local_box(split, (7, 6))
+    out["replicated"] = dict(
+        placements=_spec(g), err=float((g.to_local() - c[start[0]:stop[0]]).abs().max()),
+        rows=int(g.to_local().shape[0]))
+    # (2) a pending gradient: x's rows split over 'model' too, so each rank's
+    # product gives part of the weight's gradient
+    xd = dist.put_global(x, split)
+    wd = dist.put_global(w, split).requires_grad_(True)
+    pending = tuple(Partial() if n == "model" else Replicate() for n in mesh.mesh_dim_names)
+    prod = xd.to_local() @ rsh.redistribute(wd, whole).to_local(grad_placements=pending)
+    (g,) = torch.autograd.grad((torch.tanh(prod) * prod).sum(), wd)
+    wp = w.clone().requires_grad_(True)
+    pp = x @ wp
+    (gp,) = torch.autograd.grad((torch.tanh(pp) * pp).sum(), wp)
+    out["pending"] = dict(
+        placements=_spec(g), err=float((g.to_local() - gp[start[0]:stop[0]]).abs().max()),
+        scale=float(gp.abs().max()))
+    return out
+
+
+def scenario_mesh_train(spec: dict, rank: int) -> dict:
+    """The dense decoders' train step under a mesh of the job's ranks: for
+    each (arch, rules, dtype) case, the reduced model's params (the job's
+    `weights.npz`, laid out by `tree_shardings(rules)`) and the batches of
+    `synthetic_batch` laid out by `batch_shardings`: the loss and every
+    gradient of step 0 (`steps.loss_and_grads`, its collectives counted),
+    then the chained train
+    steps with gradient compression (`make_train_step`): each step's
+    metrics and the params and Adam state after the last. Then the
+    launcher (`launch.train.run(mesh=)`) with an async save and a resume,
+    and `_gather_backward_check`. Rank 0 writes everything, gathered, to
+    `mesh_train.pkl`."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime import dist, steps
+    from repro_torch.runtime import sharding as rsh
+
+    torch.set_num_threads(2)
+    a = spec["args"]
+    mesh = make_emulated_mesh(tuple(a["mesh"]), device="cpu")
+    weights = dict(np.load(os.path.join(spec["outdir"], "weights.npz")))
+
+    def host(tree) -> dict:
+        return {k: dist.gather(v).to(torch.float32).numpy() for k, v in _flat(tree).items()}
+
+    out = {}
+    for arch, rules_name, dtype in a["cases"]:
+        rules = getattr(rsh, rules_name)
+        cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), n_layers=a["layers"],
+                                  dtype=dtype)
+        model = build_model(cfg, device="cpu")
+        desc = model.desc()
+        lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rules, mesh, mnn.abstract_tree(desc)))
+        params = nest({k: dist.put_global(torch.from_numpy(w), lay[k]) for k, w in weights.items()})
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=a["seq"], global_batch=a["batch"])
+        shape = np.zeros((a["batch"], a["seq"]))
+        blay = batch_shardings({"tokens": shape, "labels": shape}, mesh, a["batch"])
+        batches = [{k: dist.put_global(torch.from_numpy(v), blay[k])
+                    for k, v in synthetic_batch(dcfg, s).items()} for s in range(a["steps"])]
+        with rsh.activate(mesh, rules):
+            with CommDebugMode() as comm:
+                grads, aux = steps.loss_and_grads(model, params, batches[0])
+            gc = GradCompressConfig(eb_rel=a["eb_rel"])
+            step = steps.make_train_step(model, AdamWConfig(**a["opt"]), gc)
+            opt = steps.init_opt_state(params, gc)
+            metrics = []
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+        out[f"{arch}/{rules_name}/{dtype}"] = dict(
+            loss=float(aux["loss"]), tokens=float(aux["tokens"]), grads=host(grads),
+            comm={str(k): v for k, v in comm.get_comm_counts().items()},
+            grad_specs={k: _spec(v) for k, v in _flat(grads).items()}, metrics=metrics,
+            params=host(params), m=host(opt["adam"]["m"]), v=host(opt["adam"]["v"]),
+            specs={f"{part}/{k}": _spec(v) for part, tree in (
+                ("params", params), ("m", opt["adam"]["m"]), ("v", opt["adam"]["v"]),
+                ("residual", opt["gc"]["residual"])) for k, v in _flat(tree).items()},
+            step=int(opt["adam"]["step"]))
+    # the launcher on the mesh: an async save at step 2, the final save, a
+    # resume to the last step
+    la = a["launcher"]
+    ckpt = os.path.join(spec["outdir"], "ckpt")
+    args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt])
+    cfg, model = train.build(args)
+    first = train.run(args, cfg, model, rsh.place_params(model, mesh, rsh.TRAIN_RULES), mesh=mesh)
+    args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt, "--steps", str(la["resume_steps"]),
+                                          "--resume"])
+    again = train.run(args, cfg, model, rsh.place_params(model, mesh, rsh.TRAIN_RULES), mesh=mesh)
+    launcher = dict(losses=first["losses"], resumed=again["losses"],
+                    params_specs={k: _spec(v) for k, v in _flat(again["params"]).items()},
+                    params=host(again["params"]))
+    check = _gather_backward_check(mesh)
+    if rank == 0:
+        _dump(spec, "mesh_train.pkl", dict(cases=out, launcher=launcher))
+    return {"rank": rank, "backend": dist.backend(), "gather_backward": check,
+            "losses": {k: [m["loss"] for m in v["metrics"]] for k, v in out.items()},
+            "launcher": launcher["losses"] + launcher["resumed"]}
+
+
 def scenario_card_layer(spec: dict, rank: int) -> dict:
     """Two ranks on one card over gloo, a (1, 2) ('data', 'model') mesh: one
     phi4-mini-width decoder layer (attention with its cache, SwiGLU MLP)
@@ -579,6 +714,69 @@ def scenario_card_layer(spec: dict, rank: int) -> dict:
     )
 
 
+def scenario_card_train(spec: dict, rank: int) -> dict:
+    """Two ranks on one card over gloo, on the ('data', 'model') mesh of
+    `args["mesh"]`: smollm-360m at full width and 2 layers, float32, under
+    `activate(mesh, TRAIN_RULES)`, one batch of 4 x 64 tokens. On (1, 2),
+    15 query and 5 KV heads: `split_heads` gathers Q, K and V, the vocab is
+    split over 'model'; on (2, 1), FSDP: the batch split over 'data', each
+    weight's 'embed' dim gathered before its product and its gradient
+    reduce-scattered. The loss and gradients (`steps.loss_and_grads`) and
+    one train step with gradient compression, against the same on the
+    unsharded params on the card. Each quantity's distance, of its max."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import nn as mnn
+    from repro_torch.optim import AdamWConfig, GradCompressConfig
+    from repro_torch.runtime import dist, steps
+    from repro_torch.runtime import sharding as rsh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_emulated_mesh(tuple(spec["args"]["mesh"]))
+    cfg = get_config("smollm-360m").scaled(n_layers=2, dtype="float32")
+    model = build_model(cfg, device=dev)
+    desc = model.desc()
+    full = mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)
+    lay = rsh.tree_shardings(mnn.axes_tree(desc), rsh.TRAIN_RULES, mesh, mnn.abstract_tree(desc))
+    params = mnn.tree_map(dist.put_global, full, lay)
+    plain = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), 0)
+    blay = batch_shardings(plain, mesh, 4)
+    plain = {k: torch.from_numpy(v).to(dev) for k, v in plain.items()}
+    batch = {k: dist.put_global(v, blay[k]) for k, v in plain.items()}
+    gc = GradCompressConfig(eb_rel=1e-3)
+    step = steps.make_train_step(model, AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5), gc)
+    with rsh.activate(mesh, rsh.TRAIN_RULES):
+        grads, aux = steps.loss_and_grads(model, params, batch)
+        grads = {k: dist.gather(v) for k, v in _flat(grads).items()}
+        params, _, metrics = step(params, steps.init_opt_state(params, gc), batch)
+    want_grads, want_aux = steps.loss_and_grads(model, full, plain)
+    full, _, want = step(full, steps.init_opt_state(full, gc), plain)
+
+    def rel(a, w):
+        a, w = a.to(torch.float32).cpu(), w.to(torch.float32).cpu()
+        return float((a - w).abs().max() / w.abs().max())
+
+    moved = {k: dist.gather(v) for k, v in _flat(params).items()}
+    return dict(
+        rank=rank, backend=dist.backend(), device=str(params["embed"].to_local().device),
+        specs={k: _spec(v) for k, v in _flat(params).items()},
+        loss=rel(aux["loss"], want_aux["loss"]),
+        grads={k: rel(g, _flat(want_grads)[k]) for k, g in grads.items()},
+        metrics={k: rel(metrics[k], want[k]) for k in ("grad_norm", "wire_bits_per_value")},
+        # after one step: the share of values off by more than 1e-5 of the
+        # leaf's max, and the largest distance over the step's lr
+        params={k: [float(((v - w.cpu()).abs() > 1e-5 * w.abs().max().cpu()).float().mean()),
+                    float((v - w.cpu()).abs().max() / want["lr"].cpu())]
+                for k, (v, w) in ((k, (moved[k], x)) for k, x in _flat(full).items())},
+    )
+
+
 def _nothing():
     import contextlib
 
@@ -588,7 +786,9 @@ def _nothing():
 SCENARIOS = {
     "card": scenario_card,
     "card_layer": scenario_card_layer,
+    "card_train": scenario_card_train,
     "mesh_serve": scenario_mesh_serve,
+    "mesh_train": scenario_mesh_train,
     "fault": scenario_fault,
     "owner": scenario_owner,
     "save_restore": scenario_save_restore,
