@@ -150,7 +150,7 @@ phase that goes wrong:
    `TRAIN_RULES`, saved raw and restored under (1, 4) bit for bit; and
    K1/K2 at the shard shapes (`[sharded-kernels]`);
 15. serving under a mesh (`[mesh-serve]`, after `[sharded]`):
-   phi4-mini-3.8b at full width and depth served unsharded on the card
+   phi4-mini-3.8b at full width and 8 of its 32 layers served unsharded on the card
    (`launch.serve.run_static`: a prefill of 4 x 64 tokens and 16 greedy
    decode steps), then by four ranks over gloo on a (2, 2) ('data',
    'model') mesh through `run_static(mesh=)` under `SERVE_RULES` (params
@@ -164,7 +164,7 @@ phase that goes wrong:
    collectives of a prefill and of a decode step by kind, one decode step
    traced on rank 0, the peak memory of each rank. No kernel runs here;
 16. training under a mesh (`[mesh-train]`, after `[mesh-serve]`):
-   smollm-360m at full width and depth trained unsharded on the card
+   smollm-360m at full width and 8 of its 32 layers trained unsharded on the card
    (`launch.train.main`, 2 steps of 8 x 256 tokens with gradient
    compression), then by four ranks over gloo on a (2, 2) ('data',
    'model') mesh through `launch.train.run(mesh=)` under `TRAIN_RULES`
@@ -176,7 +176,19 @@ phase that goes wrong:
    the unsharded params' loss on the same batch, within the same bound;
    each rank's step ms beside the unsharded step's, the collectives of
    one step by kind, the peak memory of each rank. No kernel runs here;
-17. one JSON line with every kernel's launches on its path, error, times,
+   the phase prints, in bytes, why llama4-scout and deepseek-v2 are not
+   trained at full width (`MESH_TRAIN_NOT_RUN`);
+17. the MoE and MLA decoders under a mesh (`[mesh-moe]`, after
+   `[mesh-train]`): deepseek-v2-236b at full width and 2 of its 60 layers
+   (the leading dense layer in `dense_blocks` and one MoE layer of 160
+   experts, top-6, 2 shared, both MLA) served as 15 serves phi4-mini:
+   unsharded, then four ranks on (2, 2) under `SERVE_RULES` (the experts
+   and heads split over 'model', the routing global over the batch's
+   split), each forced step's logits within `MESH_SERVE_RTOL`, every param
+   and cache leaf (the MLA latent too) on its placements, the gathered
+   caches within the bound, the share of tokens whose experts differ from
+   the unsharded run at the forced steps. No kernel runs here;
+18. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -197,7 +209,8 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 `--zoo` only the phases of 13, `--sharded` only the phase of 14 (with the
-fields it needs), `--mesh-serve` only the phase of 15, and
+fields it needs), `--mesh-serve`, `--mesh-train` and `--mesh-moe` only the
+phases of 15, 16 and 17, and
 `--train-profile` traces three full-width train steps (`train_profile`).
 """
 
@@ -3464,13 +3477,19 @@ def sharded_only(torch, np, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# [mesh-serve]: the dense decoder served under SERVE_RULES, 4 ranks
+# [mesh-serve] and [mesh-moe]: decoders served under SERVE_RULES, 4 ranks
 # ---------------------------------------------------------------------------
 
-#: phi4-mini-3.8b at full width and depth on a (2, 2) ('data', 'model')
-#: mesh of 4 ranks sharing the card over gloo; a prefill of 4 x 64 tokens,
-#: 8 decode steps fed the unsharded run's greedy tokens, then 8 greedy ones
+#: phi4-mini-3.8b at full width and 8 of its 32 layers on a (2, 2)
+#: ('data', 'model') mesh of 4 ranks sharing the card over gloo; a prefill
+#: of 4 x 64 tokens, 8 decode steps fed the unsharded run's greedy tokens,
+#: then 8 greedy ones (the depth cut pays for `[mesh-moe]`)
 MESH_SERVE_ARCH, MESH_SERVE_MESH, MESH_SERVE_RANKS = "phi4-mini-3.8b", (2, 2), 4
+MESH_SERVE_LAYERS = 8
+#: `[mesh-moe]`: deepseek-v2-236b at full width and 2 of its 60 layers (the
+#: leading dense layer in `dense_blocks` and one MoE layer, both MLA) served
+#: as `[mesh-serve]` serves phi4-mini
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "deepseek-v2-236b", 2
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_FORCED, MESH_SERVE_FREE = 4, 64, 8, 8
 #: max(2e-2, d) of max|logit| per step, d the reference's own distance
 #: between its sharded and unsharded bfloat16 runs of the reduced model on
@@ -3492,44 +3511,90 @@ def _mesh_serve_args(device: str, arch: str, smoke: bool):
                             + (["--smoke"] if smoke else []))
 
 
+def _mesh_serve_build(torch, args, n_layers: int, mesh=None):
+    """`launch.serve.build(args, mesh)` with the config cut to `n_layers`
+    (serve's launcher has no depth flag): (cfg, model, params), the params
+    from a generator seeded 0, laid out by `SERVE_RULES` on `mesh` when
+    given."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import sharding as rsh
+
+    cfg = get_config(args.arch)
+    cfg = (reduced_for_smoke(cfg) if args.smoke else cfg).scaled(n_layers=n_layers)
+    model = build_model(cfg, device=args.device)
+    if mesh is not None:
+        return cfg, model, rsh.place_params(model, mesh, rsh.SERVE_RULES)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    return cfg, model, mnn.init_tree(model.desc(), gen, device=model.device)
+
+
+def _cache_stacks(cache) -> dict:
+    """The cache's stacked leaves by name ('blocks/k', 'dense_blocks/ckv',
+    ...), without the clock."""
+    return {k: v for k, v in _flat(cache).items() if k != "pos"}
+
+
+def _choices_differ(np, got, want) -> float:
+    """The share of tokens whose set of experts differs between two runs'
+    expert choices, (B, L, k) each."""
+    g, w = np.sort(np.asarray(got), axis=-1), np.sort(np.asarray(want), axis=-1)
+    return float(np.mean(np.any(g != w, axis=-1)))
+
+
 def _margin(np, row) -> float:
     top = np.partition(np.asarray(row, np.float64), -2)[-2:]
     return float(top[1] - top[0])
 
 
-def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: bool = False) -> dict:
-    """`[mesh-serve]`: `arch` served unsharded on the card by
+def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: bool = False,
+                     n_layers: int = MESH_SERVE_LAYERS, tag: str = "mesh-serve") -> dict:
+    """`[mesh-serve]` (and `[mesh-moe]`, `tag`): `arch` at full width and
+    `n_layers` layers served unsharded on the card by
     `launch.serve.run_static` (prefill of 4 x 64, 16 greedy decode steps),
-    its last-position logits, tokens and cache kept on the host; then the
-    card freed and four ranks (`launch/mhrun.py`, gloo) serving it through
-    `run_static(mesh=)` on a (2, 2) ('data', 'model') mesh under
+    its last-position logits, tokens and cache kept on the host (and, for
+    an MoE, each forced step's expert choices, `blocks.ROUTING_LOG`); then
+    the card freed and four ranks (`launch/mhrun.py`, gloo) serving it
+    through `run_static(mesh=)` on a (2, 2) ('data', 'model') mesh under
     `SERVE_RULES`, params drawn from the same generator and kept by box:
     the same prefill, 8 decode steps fed the unsharded greedy tokens
     (every step's logits within `MESH_SERVE_RTOL` of max|logit| of the
     unsharded step's), then 8 greedy steps (the tokens that differ printed
     with the unsharded top-2 margin). Every param and cache leaf must keep
     the placements the rules give, and the gathered cache's rows written
-    by the forced steps must equal the unsharded cache's within the same
-    bound. Prints prefill and decode ms (the maximum over ranks) beside the
-    unsharded run's, the collectives of one prefill and one decode step by
-    kind, and the peak memory of each rank. No kernel of K1-K6 runs here."""
+    by the forced steps (every stack's, the MLA latent too) must equal the
+    unsharded cache's within the same bound. Prints prefill and decode ms
+    (the maximum over ranks) beside the unsharded run's, the collectives
+    of one prefill and one decode step by kind, the share of tokens whose
+    experts differ from the unsharded run's at the forced steps, and the
+    peak memory of each rank. No kernel of K1-K6 runs here."""
     import shutil
 
     from repro_torch.launch import mhrun, serve
+    from repro_torch.models import blocks
 
     free_card(torch)
     wd = mesh_serve_dir()
     shutil.rmtree(wd, ignore_errors=True)
     wd.mkdir(parents=True)
     args = _mesh_serve_args(dev.type, arch, smoke)
-    cfg, model, params = serve.build(args)
+    cfg, model, params = _mesh_serve_build(torch, args, n_layers)
     n_params = sum(a.numel() for a in _leaves(params))
-    base = serve.run_static(args, cfg, model, params, keep=True)
+    blocks.ROUTING_LOG = [] if cfg.moe else None
+    try:
+        base = serve.run_static(args, cfg, model, params, keep=True)
+        if cfg.moe:  # the prefill's and the forced steps' choices, a layer each
+            n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+            np.savez(wd / "choices.npz", *[
+                t.cpu().numpy() for t in blocks.ROUTING_LOG[: n_moe * (1 + MESH_SERVE_FORCED)]])
+    finally:
+        blocks.ROUTING_LOG = None
     base_ms = dict(prefill_ms=base["prefill_s"] * 1e3,
                    decode_ms_per_step=base["decode_s"] * 1e3 / (args.gen - 1))
     np.save(wd / "tokens.npy", base["tokens"])
     np.save(wd / "logits.npy", np.stack([t.numpy() for t in base["logits"]]))
-    torch.save({k: v.cpu() for k, v in base["cache"]["blocks"].items()}, wd / "cache.pt")
+    torch.save({k: v.cpu() for k, v in _cache_stacks(base["cache"]).items()}, wd / "cache.pt")
     del model, params, base["cache"]
     free_card(torch)
     t0 = time.perf_counter()
@@ -3537,7 +3602,7 @@ def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: b
         [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-worker"], MESH_SERVE_RANKS,
         scenario="mesh_serve", backend="gloo", timeout_s=MESH_SERVE_TIMEOUT_S,
         workdir=str(wd / "mhrun"), extra_env={"OMP_NUM_THREADS": "2"},
-        args=dict(arch=arch, smoke=smoke, device=dev.type, dir=str(wd)),
+        args=dict(arch=arch, smoke=smoke, device=dev.type, dir=str(wd), n_layers=n_layers),
     )
     job_s = time.perf_counter() - t0
     payloads = mhrun.require_success(results)
@@ -3554,6 +3619,10 @@ def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: b
     for i, d in enumerate(rel):
         check(d <= MESH_SERVE_RTOL, f"step {i}: sharded logits {d:.4g} of max|logit| off the "
               f"unsharded run's (bound {MESH_SERVE_RTOL})")
+    experts = {tuple(e) for e in p0["expert_shards"]}
+    expert_gathers = [g for p in payloads for g in p["staged_gathers"]
+                      if tuple(g[1][-3:]) in experts]
+    check(not expert_gathers, f"expert weights gathered: {expert_gathers[:4]}")
     for k, d in p0["cache_rel"].items():
         check(d <= MESH_SERVE_RTOL, f"cache {k}: {d:.4g} of max|cache| off the unsharded cache")
     want = np.load(wd / "tokens.npy")
@@ -3562,24 +3631,38 @@ def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: b
     differ = [dict(row=int(r), step=int(c), sharded=int(got[r, c]), unsharded=int(want[r, c]),
                    unsharded_top2_margin=_margin(np, logits[c, r]))
               for r, c in zip(*np.nonzero(got != want))]
-    log("mesh-serve", json.dumps(dict(
-        arch=arch, params=n_params, mesh=p0["mesh"], backend=p0["backend"], ranks=len(payloads),
-        job_s=job_s, rel_by_step=rel, bound=MESH_SERVE_RTOL, cache_rel=p0["cache_rel"],
-        placements_ok=True, leaves=p0["leaves"], card=card)))
-    log("mesh-serve", json.dumps(dict(tokens_differ=differ, forced_steps=MESH_SERVE_FORCED,
-                                      free_steps=MESH_SERVE_FREE)))
-    log("mesh-serve", json.dumps(dict(
+    log(tag, json.dumps(dict(
+        arch=arch, layers=n_layers, params=n_params, mesh=p0["mesh"], backend=p0["backend"],
+        ranks=len(payloads), job_s=job_s, rel_by_step=rel, bound=MESH_SERVE_RTOL,
+        cache_rel=p0["cache_rel"], placements_ok=True, leaves=p0["leaves"], card=card)))
+    log(tag, json.dumps(dict(tokens_differ=differ, forced_steps=MESH_SERVE_FORCED,
+                             free_steps=MESH_SERVE_FREE)))
+    routing = None
+    if cfg.moe:
+        with np.load(wd / "choices.npz") as z:
+            want_choices = [z[f"arr_{i}"] for i in range(len(z.files))]
+        check(len(p0["choices"]) == len(want_choices),
+              f"{len(p0['choices'])} MoE routings recorded, want {len(want_choices)}")
+        routing = [_choices_differ(np, g, w) for g, w in zip(p0["choices"], want_choices)]
+        log(tag, json.dumps(dict(expert_choices_differ_by_step=routing,
+                                 tokens_a_step=[int(np.prod(w.shape[:2])) for w in want_choices],
+                                 top_k=cfg.moe.top_k, experts=cfg.moe.n_experts)))
+    log(tag, json.dumps(dict(
         prefill_ms=max(p["prefill_ms"] for p in payloads),
         decode_ms_per_step=max(p["decode_ms"] for p in payloads),
         prefill_ms_by_rank=[p["prefill_ms"] for p in payloads],
         decode_ms_by_rank=[p["decode_ms"] for p in payloads],
         unsharded=base_ms, collectives_prefill=p0["comm_prefill"],
         collectives_decode_step=p0["comm_decode"],
+        staged_gathers_by_dim={dim: sum(g[0] == dim for g in p0["staged_gathers"])
+                               for dim in ("data", "model")},
+        staged_gather_shapes=sorted({str(g[1]) for g in p0["staged_gathers"]}),
+        expert_weight_gathers=len(expert_gathers),
         peak_gib_by_rank=[p["peak_gib"] for p in payloads], card=card)))
     if p0["trace"] is not None:
-        log("mesh-serve", json.dumps(dict(traced_decode_step_rank0=p0["trace"], card=card)))
+        log(tag, json.dumps(dict(traced_decode_step_rank0=p0["trace"], card=card)))
     shutil.rmtree(wd, ignore_errors=True)
-    return dict(rel=rel, differ=len(differ))
+    return dict(rel=rel, differ=len(differ), routing=routing, job_s=job_s)
 
 
 def _mesh_step_trace(torch, step, traced: bool) -> dict | None:
@@ -3676,6 +3759,7 @@ def mesh_serve_worker(spec: dict, rank: int) -> dict:
     from repro_torch.launch import serve
     from repro_torch.launch.dryrun import batch_shardings
     from repro_torch.launch.mesh import describe_mesh, make_emulated_mesh
+    from repro_torch.models import blocks
     from repro_torch.models import nn as mnn
     from repro_torch.runtime import dist
     from repro_torch.runtime import sharding as rsh
@@ -3690,20 +3774,28 @@ def mesh_serve_worker(spec: dict, rank: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     mesh = make_emulated_mesh(MESH_SERVE_MESH, device=a["device"])
     args = _mesh_serve_args(a["device"], a["arch"], a["smoke"])
-    cfg, model, params = serve.build(args, mesh)
+    cfg, model, params = _mesh_serve_build(torch, args, a["n_layers"], mesh)
     desc = model.desc()
     flat = _flat(params)
     rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh, mnn.abstract_tree(desc)))
     param_misplaced = [k for k, v in flat.items() if tuple(v.placements) != tuple(rules[k].placements)]
     teacher = np.load(wd / "tokens.npy")[:, :MESH_SERVE_FORCED]
-    res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True)
+    blocks.ROUTING_LOG = [] if cfg.moe else None
+    try:
+        res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True)
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers if cfg.moe else 0
+        # the prefill's and the forced steps' expert choices (gathered after the timed run)
+        choices = [dist.gather(t, dst=0)
+                   for t in (blocks.ROUTING_LOG or [])[: n_moe * (1 + MESH_SERVE_FORCED)]]
+    finally:
+        blocks.ROUTING_LOG = None
     cache = res["cache"]
     lay = rsh.cache_sharding(model.cache_desc(args.batch, args.prompt_len + args.gen), mesh,
                              args.batch, {cfg.n_kv_heads, cfg.n_heads})
     cache_misplaced = [k for k, v in _flat(cache).items()
                        if tuple(v.placements) != tuple(_flat(lay)[k].placements)]
     rows = args.prompt_len + MESH_SERVE_FORCED  # written from the same tokens in both runs
-    whole = {k: dist.gather(v, dst=0) for k, v in cache["blocks"].items()}
+    whole = {k: dist.gather(v, dst=0) for k, v in _cache_stacks(cache).items()}
     rel, cache_rel = [], {}
     if rank == 0:
         base = np.load(wd / "logits.npy", mmap_mode="r")
@@ -3723,10 +3815,21 @@ def mesh_serve_worker(spec: dict, rank: int) -> dict:
             torch.as_tensor(np.repeat(teacher[:, :1], args.prompt_len, axis=1), dtype=torch.int32,
                             device=model.device),
             batch_shardings({"t": teacher}, mesh, args.batch)["t"])
-        with CommDebugMode() as comm_p:
-            _, c2 = model.forward(params, {"tokens": tok}, cache=c2)
-        with CommDebugMode() as comm_d:
-            nxt, c2 = decode(params, tok[:, :1], c2)
+        staged = []  # the host-staged gathers: (mesh dim, shard shape)
+        gather_local = rsh._gather_local
+
+        def logged(local, mesh_, j, d, extent):
+            staged.append((mesh_.mesh_dim_names[j], list(local.shape)))
+            return gather_local(local, mesh_, j, d, extent)
+
+        rsh._gather_local = logged
+        try:
+            with CommDebugMode() as comm_p:
+                _, c2 = model.forward(params, {"tokens": tok}, cache=c2)
+            with CommDebugMode() as comm_d:
+                nxt, c2 = decode(params, tok[:, :1], c2)
+        finally:
+            rsh._gather_local = gather_local
         trace = _mesh_step_trace(torch, lambda: decode(params, nxt, c2), rank == 0 and cuda)
     return dict(trace=trace,
         rank=rank, backend=dist.backend(), mesh=describe_mesh(mesh)["shape"],
@@ -3736,7 +3839,27 @@ def mesh_serve_worker(spec: dict, rank: int) -> dict:
         comm_prefill={str(k): v for k, v in comm_p.get_comm_counts().items()},
         comm_decode={str(k): v for k, v in comm_d.get_comm_counts().items()},
         peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+        choices=[c.numpy().tolist() for c in choices] if rank == 0 else [],
+        staged_gathers=staged,
+        expert_shards=sorted({tuple(v.to_local().shape[-3:]) for k, v in flat.items()
+                              if "/mlp/w_" in k and "shared" not in k and v.ndim == 4}),
     )
+
+
+def phase_mesh_moe(torch, np, dev, card, smoke: bool = False) -> dict:
+    """`[mesh-moe]`: deepseek-v2-236b at full width and 2 of its 60 layers
+    (`MESH_MOE_LAYERS`: the dense layer in `dense_blocks` and one MoE layer,
+    both MLA; 5.36 B float32 parameters, 21.4 GB unsharded, ~10.8 GB a
+    rank), served by `phase_mesh_serve`: the same checks, the MLA latent
+    cache among the gathered leaves, and the share of tokens whose expert
+    choice differs from the unsharded run at the forced steps."""
+    return phase_mesh_serve(torch, np, dev, card, arch=MESH_MOE_ARCH, smoke=smoke,
+                            n_layers=MESH_MOE_LAYERS, tag="mesh-moe")
+
+
+def mesh_moe_only(torch, np, dev) -> dict:
+    """`[mesh-moe]` alone."""
+    return phase_mesh_moe(torch, np, dev, card_line())
 
 
 def mesh_serve_only(torch, np, dev) -> dict:
@@ -3756,22 +3879,29 @@ def mesh_serve_only(torch, np, dev) -> dict:
 # [mesh-train]: the dense decoder trained under TRAIN_RULES, 4 ranks
 # ---------------------------------------------------------------------------
 
-#: smollm-360m at full width and depth on a (2, 2) ('data', 'model') mesh
-#: of 4 ranks sharing the card over gloo: 2 compressed steps of 8 x 256
-#: tokens (an async save after step 2, then the final save of the same
-#: step), a restore of step 2 under the mesh, then a resumed run to step 3
+#: smollm-360m at full width and 8 of its 32 layers on a (2, 2) ('data',
+#: 'model') mesh of 4 ranks sharing the card over gloo: 2 compressed steps
+#: of 8 x 256 tokens (an async save after step 2, then the final save of
+#: the same step), a restore of step 2 under the mesh, then a resumed run
+#: to step 3 (the depth cut pays for `[mesh-moe]`)
 MESH_TRAIN_ARCH, MESH_TRAIN_MESH, MESH_TRAIN_RANKS = "smollm-360m", (2, 2), 4
+MESH_TRAIN_LAYERS = 8
 MESH_TRAIN_STEPS, MESH_TRAIN_RESUME = 2, 3
 #: the launcher computes in bfloat16 (the config's dtype): max(2e-2, d) of
 #: the loss, d the reference's own sharded-vs-unsharded distance at
 #: bfloat16 (within 2e-2 on the reduced model, tests/test_torch_mesh_train.py)
 MESH_TRAIN_RTOL = 2e-2
 MESH_TRAIN_TIMEOUT_S = 900.0
-#: full-width training that does not fit four ranks sharing one 80 GB card
+#: full-width training that does not fit four ranks sharing one 80 GB card:
+#: float32 params, gradients, Adam's m and v and the compressor's residuals
+#: are 20 bytes a parameter before any activation (the 2-rank `cuda` tests
+#: train deepseek-v2 at a reduced width on the card instead)
 MESH_TRAIN_NOT_RUN = {
     "phi4-mini-3.8b": "~89 GB of float32 train state (params, m, v, residuals)",
-    "llama4-scout-17b-a16e": "2.2 B parameters a layer; MoE under a mesh is item 14e",
-    "deepseek-v2-236b": "~3.9 B parameters a layer; MoE and MLA under a mesh are item 14e",
+    "llama4-scout-17b-a16e": "1 of 48 layers: 4.27 B parameters, 85.4 GB of float32 train "
+                             "state; 2 layers: 6.47 B, 129.5 GB",
+    "deepseek-v2-236b": "2 of 60 layers (the dense one and one MoE): 5.36 B parameters, "
+                        "107.2 GB of float32 train state",
 }
 
 
@@ -3780,14 +3910,16 @@ def mesh_train_dir() -> Path:
 
 
 def _mesh_train_argv(device: str, smoke: bool) -> list:
-    return (["--arch", MESH_TRAIN_ARCH, "--device", device, "--batch", "8", "--seq", "256",
+    return (["--arch", MESH_TRAIN_ARCH, "--device", device, "--n-layers", str(MESH_TRAIN_LAYERS),
+             "--batch", "8", "--seq", "256",
              "--steps", str(MESH_TRAIN_STEPS), "--compress-grads", "--log-every", "1"]
             + (["--smoke"] if smoke else []))
 
 
 def phase_mesh_train(torch, np, dev, card, smoke: bool = False) -> dict:
-    """`[mesh-train]`: smollm-360m trained unsharded on the card by
-    `launch.train.main` (its losses, step ms and peak kept), and the
+    """`[mesh-train]`: smollm-360m (full width, `MESH_TRAIN_LAYERS` layers)
+    trained unsharded on the card by `launch.train.main` (its losses, step
+    ms and peak kept), and the
     unsharded params' loss on the batch of step `MESH_TRAIN_STEPS`; then
     the card freed and four ranks (`launch/mhrun.py`, gloo) training it
     through `train.run(mesh=)` on a (2, 2) ('data', 'model') mesh under
@@ -3849,7 +3981,7 @@ def phase_mesh_train(torch, np, dev, card, smoke: bool = False) -> dict:
         check(d <= MESH_TRAIN_RTOL, f"step {i}: sharded loss {got[i]} {d:.4g} off the unsharded "
               f"{want[i]} (bound {MESH_TRAIN_RTOL})")
     log("mesh-train", json.dumps(dict(
-        arch=MESH_TRAIN_ARCH, params=n_params, dtype=cfg.dtype, mesh=p0["mesh"],
+        arch=MESH_TRAIN_ARCH, layers=MESH_TRAIN_LAYERS, params=n_params, dtype=cfg.dtype, mesh=p0["mesh"],
         backend=p0["backend"], ranks=len(payloads), rules="TRAIN_RULES", batch=args.batch,
         seq=args.seq, steps=MESH_TRAIN_STEPS, resumed_to=MESH_TRAIN_RESUME, losses=got,
         unsharded_losses=want, rel_by_step=rel, bound=MESH_TRAIN_RTOL,
@@ -3989,6 +4121,9 @@ def main() -> int:
     parser.add_argument("--mesh-train", action="store_true",
                         help="only run the four-rank training phase under TRAIN_RULES "
                         "(mesh_train_only)")
+    parser.add_argument("--mesh-moe", action="store_true",
+                        help="only run the four-rank MoE and MLA serving phase under SERVE_RULES "
+                        "(mesh_moe_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -4032,6 +4167,7 @@ def main() -> int:
                           (args.sharded, sharded_only),
                           (args.mesh_serve, mesh_serve_only),
                           (args.mesh_train, mesh_train_only),
+                          (args.mesh_moe, mesh_moe_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
@@ -4063,6 +4199,7 @@ def main() -> int:
         launches[name] += n
     phase_mesh_serve(torch, np, dev, card)
     phase_mesh_train(torch, np, dev, card)
+    phase_mesh_moe(torch, np, dev, card)
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)

@@ -15,6 +15,10 @@ no older copy.
 The MoE block is deterministic on the card: its top-k breaks ties toward
 the lower expert index and its combine adds in a fixed order (see
 `apply_moe`), so two runs on the same inputs agree bit for bit.
+
+Under a mesh (`runtime.sharding.activate`) every block takes DTensors:
+GQA and MLA run on each rank's rows and heads, the MoE on each rank's
+tokens and experts with the global routing (`_moe_sharded`).
 """
 
 from __future__ import annotations
@@ -125,7 +129,7 @@ def apply_attn(
         ck, cv = cache["k"], cache["v"]
         if "k_scale" in cache and nn.is_sharded(q):
             raise NotImplementedError(
-                "the int8 KV cache under a mesh: ROADMAP.md queue A, item 14e")
+                "the int8 KV cache under a mesh: ROADMAP.md queue A, item 14d")
         if "k_scale" in cache:
             # int8 KV cache: per-(token, head) linear quantization (the
             # paper's Stage-II vector quantization applied to KV residency)
@@ -230,58 +234,132 @@ def apply_mla(
     mask is ``kpos <= len + i`` and ``kpos < len + L``. Without a cache
     (training, parallel forward) K and V are materialized: q and k are
     qk_nope + qk_rope wide, v is v_head wide.
+
+    Under a mesh x is split by batch; `wq_b` and `wkv_b` are split by
+    heads over 'model' (column-parallel), so q, K and V come out on each
+    rank's heads (`nn.split_heads`); the shared rope key (B, L, 1, r) and
+    the latent cache, which have no head dim, are whole over 'model' and
+    are widened to the local heads only; `wo` is row-parallel.
     """
     b, l, d = x.shape
     h = cfg.n_heads
     m: MLACfg = cfg.mla
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = dense(rms_norm(dense(xn, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
-    q = q.reshape(b, l, h, m.qk_nope + m.qk_rope)
-    q_nope, q_rope = q[..., : m.qk_nope], q[..., m.qk_nope:]
+    q = nn.split_heads(q, h, m.qk_nope + m.qk_rope)
+    q_nope, q_rope = nn.split_last(q, m.qk_nope, m.qk_rope)
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     kv_a = dense(xn, p["wkv_a"])
-    c_kv, k_rope = kv_a[..., : m.kv_lora], kv_a[..., m.kv_lora:]
-    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # (B, L, 1, r)
+    c_kv, k_rope = nn.split_last(kv_a, m.kv_lora, m.qk_rope)
+    k_rope = nn.on_shards(lambda t: t[:, :, None, :], k_rope, (b, l, 1, m.qk_rope))
+    k_rope = rope(k_rope, positions, cfg.rope_theta)  # (B, L, 1, r)
     if cache is not None:
         # --- absorbed MLA decode: score and contract in the latent space ---
         pos = cache["len"]
         cc, cr = cache["ckv"], cache["krope"]
         mcap = cc.shape[1]
         rows = torch.clamp(pos, min=0, max=mcap - l).long() + torch.arange(l, device=x.device)
-        cc.index_copy_(1, rows, c_kv.to(cc.dtype))
-        cr.index_copy_(1, rows, k_rope[:, :, 0, :].to(cr.dtype))
+        nn.write_rows(cc, rows, c_kv.to(cc.dtype))
+        nn.write_rows(cr, rows, nn.on_shards(lambda t: t[:, :, 0, :], k_rope,
+                                             (b, l, m.qk_rope)).to(cr.dtype))
         new_cache = {"ckv": cc, "krope": cr, "len": pos + l}
         c_all = rms_norm(cc.to(x.dtype), p["kv_norm"], cfg.norm_eps)  # (B, M, r)
         kr_all = cr.to(x.dtype)  # (B, M, rope)
-        kv_len = pos + l
-        wkv = p["wkv_b"].reshape(m.kv_lora, h, m.qk_nope + m.v_head).to(x.dtype)
-        w_uk, w_uv = wkv[..., : m.qk_nope], wkv[..., m.qk_nope:]
-        q_lat = torch.einsum("blhn,rhn->blhr", q_nope, w_uk)  # absorb W_uk
-        q_lat = shard(q_lat, "batch", None, "heads", None)
-        scale = 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
-        logits = (
-            torch.einsum("blhr,bmr->bhlm", q_lat, c_all)
-            + torch.einsum("blhr,bmr->bhlm", q_rope, kr_all)
-        ).to(torch.float32) * scale
-        qpos = torch.arange(l, device=x.device)[:, None] + pos
-        kpos = torch.arange(mcap, device=x.device)[None, :]
-        mask = (kpos <= qpos) & (kpos < kv_len)
-        logits = torch.where(mask[None, None], logits, -1e30)
-        wts = torch.softmax(logits, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhlm,bmr->blhr", wts, c_all)
-        out = torch.einsum("blhr,rhv->blhv", ctx, w_uv)  # deferred W_uv
+        if nn.is_sharded(q_nope):
+            out = _absorbed_sharded(q_nope, q_rope, c_all, kr_all, p["wkv_b"], pos, l, cfg)
+        else:
+            wkv = p["wkv_b"].reshape(m.kv_lora, h, m.qk_nope + m.v_head).to(x.dtype)
+            out = _absorbed(q_nope, q_rope, c_all, kr_all, wkv, pos, l, cfg)
         return dense(out.reshape(b, l, h * m.v_head), p["wo"]), new_cache
     # --- parallel path (train / no cache): materialized K/V ---
     kv = dense(rms_norm(c_kv, p["kv_norm"], cfg.norm_eps), p["wkv_b"])
-    kv = kv.reshape(b, l, h, m.qk_nope + m.v_head)
-    k_nope, v = kv[..., : m.qk_nope], kv[..., m.qk_nope:]
-    k = torch.cat([k_nope, k_rope.expand(b, l, h, m.qk_rope)], dim=-1)
-    qq = torch.cat([q_nope, q_rope], dim=-1)
+    kv = nn.split_heads(kv, h, m.qk_nope + m.v_head)
+    k_nope, v = nn.split_last(kv, m.qk_nope, m.v_head)
+    k = _with_rope_key(k_nope, k_rope)
+    qq = _cat_last(q_nope, q_rope)
     qq = shard(qq, "batch", None, "heads", None)
     k = shard(k, "batch", None, "heads", None)
     v = shard(v, "batch", None, "heads", None)
     out = attention(qq, k, v, causal=True)  # scaled by 1/sqrt(qk_nope + qk_rope)
     return dense(out.reshape(b, l, h * m.v_head), p["wo"]), None
+
+
+def _absorbed(q_nope, q_rope, c_all, kr_all, wkv, pos, l: int, cfg: ModelConfig):
+    """The absorbed attention on plain tensors: queries (B, L, H, ·) of H
+    heads, the normed latent (B, M, kv_lora) and rope keys (B, M, r), and
+    `wkv_b` as (kv_lora, H, qk_nope + v_head) in the compute dtype; the
+    context (B, L, H, v_head) before `wo`."""
+    m: MLACfg = cfg.mla
+    mcap = c_all.shape[1]
+    w_uk, w_uv = wkv[..., : m.qk_nope], wkv[..., m.qk_nope:]
+    q_lat = torch.einsum("blhn,rhn->blhr", q_nope, w_uk)  # absorb W_uk
+    scale = 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
+    logits = (
+        torch.einsum("blhr,bmr->bhlm", q_lat, c_all)
+        + torch.einsum("blhr,bmr->bhlm", q_rope, kr_all)
+    ).to(torch.float32) * scale
+    qpos = torch.arange(l, device=q_nope.device)[:, None] + pos
+    kpos = torch.arange(mcap, device=q_nope.device)[None, :]
+    mask = (kpos <= qpos) & (kpos < pos + l)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    wts = torch.softmax(logits, dim=-1).to(q_nope.dtype)
+    ctx = torch.einsum("bhlm,bmr->blhr", wts, c_all)
+    return torch.einsum("blhr,rhv->blhv", ctx, w_uv)  # deferred W_uv
+
+
+def _absorbed_sharded(q_nope, q_rope, c_all, kr_all, wkv_b, pos, l: int, cfg: ModelConfig):
+    """`_absorbed` on DTensors, on each rank's rows and heads: `wkv_b` laid
+    out with the queries' head split (gathered where the heads do not
+    divide it, as `nn.split_heads` gathers q), the latent whole over the
+    head split. Each local operand declares its gradient's layout: the
+    latent's and the weight's are pending sums over the mesh dims that
+    split the heads and the batch, respectively."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..runtime import sharding as rsh
+
+    m: MLACfg = cfg.mla
+    heads = [j for j, pl in enumerate(q_nope.placements) if pl == Shard(2)]
+    rows = [j for j, pl in enumerate(q_nope.placements) if pl == Shard(0)]
+    want = tuple(Shard(1) if j in heads else Replicate() for j in range(len(q_nope.placements)))
+    w = rsh.redistribute(wkv_b, want)
+    wl = w.to_local(grad_placements=tuple(Partial() if j in rows else pl
+                                          for j, pl in enumerate(want)))
+    h_loc = q_nope.to_local().shape[2]
+    wl = wl.reshape(m.kv_lora, h_loc, m.qk_nope + m.v_head).to(q_nope.dtype)
+
+    def latent(t):
+        return t.to_local(grad_placements=tuple(Partial() if j in heads else pl
+                                                for j, pl in enumerate(t.placements)))
+
+    out = _absorbed(q_nope.to_local(), q_rope.to_local(), latent(c_all), latent(kr_all), wl,
+                    pos, l, cfg)
+    return nn._like(out.contiguous(), q_nope, tuple(q_nope.shape[:3]) + (m.v_head,))
+
+
+def _with_rope_key(k_nope, k_rope):
+    """The keys [k_nope, k_rope]: the shared rope key (B, L, 1, r) widened
+    to the heads of k_nope (B, L, H, n). Under a mesh, to the local heads
+    only; its gradient is then a pending sum over the mesh dims that split
+    the heads."""
+    if not nn.is_sharded(k_nope):
+        b, l, h, _ = k_nope.shape
+        return torch.cat([k_nope, k_rope.expand(b, l, h, k_rope.shape[-1])], dim=-1)
+    from torch.distributed.tensor import Partial, Shard
+
+    kn = k_nope.to_local()
+    kr = k_rope.to_local(grad_placements=tuple(
+        Partial() if pk == Shard(2) else pr for pk, pr in zip(k_nope.placements, k_rope.placements)))
+    local = torch.cat([kn, kr.expand(*kn.shape[:3], kr.shape[-1])], dim=-1)
+    return nn._like(local, k_nope, tuple(k_nope.shape[:3]) + (k_nope.shape[3] + k_rope.shape[3],))
+
+
+def _cat_last(a, b):
+    """[a, b] along the last dim; DTensors of one layout shard by shard."""
+    if not nn.is_sharded(a):
+        return torch.cat([a, b], dim=-1)
+    return nn._like(torch.cat([a.to_local(), b.to_local()], dim=-1), a,
+                    tuple(a.shape[:-1]) + (a.shape[-1] + b.shape[-1],))
 
 
 def mla_cache_desc(cfg: ModelConfig, batch: int, max_len: int,
@@ -351,6 +429,13 @@ def desc_moe(cfg: ModelConfig) -> dict:
     return out
 
 
+#: when a list, each `apply_moe` call appends its tokens' expert choices
+#: (B, L, k) (a DTensor laid out by the batch split under a mesh), taken
+#: from the routing it computes anyway: a probe for comparing the routing
+#: of two runs. None (the default) records nothing.
+ROUTING_LOG: list | None = None
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Top-k token-choice routing with capacity; sort-based dispatch.
 
@@ -366,7 +451,13 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     and the combine adds each token's k expert outputs one after another
     in increasing expert id, the order in which the reference's
     scatter-add meets them, instead of an atomic scatter.
+
+    Under a mesh x is split by batch and the experts over 'model'
+    (`_moe_sharded`): the routing is the global one, and each rank runs its
+    own experts on its own tokens.
     """
+    if nn.is_sharded(x):
+        return _moe_sharded(p, x, cfg)
     b, l, d = x.shape
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
@@ -380,6 +471,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, sel = w[..., :k], sel[..., :k]  # (g, ng, k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    if ROUTING_LOG is not None:
+        ROUTING_LOG.append(sel.reshape(b, l, k))
     cap = min(max(int(mo.capacity_factor * ng * k / e), 8), ng)
     flat_e = sel.reshape(g_, ng * k)
     flat_t = torch.arange(ng, device=dev).repeat_interleave(k).expand(g_, ng * k)
@@ -420,4 +513,183 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if mo.n_shared:
         sp = p["shared"]
         y = y + nn.swiglu(xn.reshape(b, l, d), sp["w_gate"], sp["w_up"], sp["w_down"])
+    return y
+
+
+# --- MoE under a mesh --------------------------------------------------------
+
+
+def _moe_sizes(cfg: ModelConfig, n: int) -> tuple[int, int, int]:
+    """(groups, tokens a group, capacity) of `n` tokens, as `apply_moe`."""
+    mo = cfg.moe
+    g_ = mo.dispatch_groups if n % max(mo.dispatch_groups, 1) == 0 else 1
+    ng = n // g_
+    return g_, ng, min(max(int(mo.capacity_factor * ng * mo.top_k / mo.n_experts), 8), ng)
+
+
+def _route(probs: torch.Tensor, cfg: ModelConfig, span: tuple[int, int], n: int, gather=None):
+    """Top-k routing of the tokens [t0, t1) of `n` (their router
+    probabilities `probs` (t1 - t0, e), float32): (weights, experts, rank
+    of each choice in its expert's queue). The rank is the one the whole
+    dispatch group gives (`apply_moe`'s sort by (expert, token)): where
+    the span holds whole groups it is taken from these tokens alone;
+    otherwise `gather` gives every token's choices (n, k), the same on
+    every rank, and each rank keeps its span's rows."""
+    mo = cfg.moe
+    e, k = mo.n_experts, mo.top_k
+    _, ng, _ = _moe_sizes(cfg, n)
+    t0, t1 = span
+    w, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, sel = w[:, :k], sel[:, :k]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    base, every = t0, sel
+    if t0 % ng or t1 % ng:
+        base, every = 0, gather(sel)
+    flat_e = every.reshape(-1, ng * k)
+    dev = sel.device
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    starts = torch.searchsorted(se, torch.arange(e, device=dev).expand(se.shape[0], e).contiguous())
+    rank = torch.arange(ng * k, device=dev)[None] - torch.gather(starts, 1, se)
+    rank = torch.empty_like(rank).scatter_(1, order, rank).reshape(-1, k)
+    return w, sel, rank[t0 - base:t1 - base]
+
+
+def _moe_layout(p: dict, x):
+    """(mesh dims that split the batch, mesh dims that split the experts,
+    the expert weights with every other split gathered) for `_moe_sharded`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..runtime import sharding as rsh
+
+    if not all(pl == Shard(0) or isinstance(pl, Replicate) for pl in x.placements):
+        raise ValueError(f"the MoE takes activations split by batch only, got {x.placements}")
+    rows = [j for j, pl in enumerate(x.placements) if pl == Shard(0)]
+    ws = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = p[name]
+        if not nn.is_sharded(w):
+            raise TypeError("activations laid out on a mesh take expert weights laid out on it")
+        # FSDP's 'embed' split gathered (its gradient reduce-scattered back);
+        # the experts' own split over 'model' is kept
+        ws[name] = rsh.redistribute(w, tuple(pl if pl == Shard(0) else Replicate()
+                                             for pl in w.placements))
+    experts = [j for j, pl in enumerate(ws["w_gate"].placements) if pl == Shard(0)]
+    return rows, experts, ws
+
+
+def moe_routing(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """(experts, kept): each token's k expert choices (B, L, k) and whether
+    each was kept under the capacity (the rest contribute 0), as
+    `apply_moe` routes them; for a DTensor `x`, laid out by its batch
+    split (each rank's rows: the global routing)."""
+    b, l, _ = x.shape
+    k = cfg.moe.top_k
+    if not nn.is_sharded(x):
+        xn = rms_norm(x, p["norm"], cfg.norm_eps).reshape(b * l, -1)
+        probs = torch.softmax(dense(xn, p["router"]).to(torch.float32), dim=-1)
+        _, sel, rank = _route(probs, cfg, (0, b * l), b * l)
+        return sel.reshape(b, l, k), (rank < _moe_sizes(cfg, b * l)[2]).reshape(b, l, k)
+    _, sel, rank, _ = _moe_route_sharded(p, x, cfg)
+    keep = rank < _moe_sizes(cfg, b * l)[2]
+    from ..runtime import sharding as rsh
+
+    lay = rsh.NamedSharding(x.device_mesh, tuple(x.placements))
+    return tuple(rsh.from_local(t.reshape(-1, l, k), lay, (b, l, k)) for t in (sel, keep))
+
+
+def _moe_route_sharded(p: dict, x, cfg: ModelConfig, xl=None, rl=None):
+    """The routing of this rank's tokens of DTensor `x` (its rows' `_route`,
+    the expert choices gathered over the batch's mesh dims where the
+    groups straddle ranks): (weights, experts, ranks, (t0, t1)). `xl` and
+    `rl` are the local normed activations and the whole router where the
+    caller has them."""
+    from torch.distributed.tensor import Replicate
+
+    from ..runtime import sharding as rsh
+
+    b, l, _ = x.shape
+    n = b * l
+    mesh = x.device_mesh
+    if xl is None:
+        xl = rms_norm(x, p["norm"], cfg.norm_eps).to_local().reshape(-1, x.shape[-1])
+        rl = rsh.redistribute(p["router"], (Replicate(),) * mesh.ndim).to_local()
+    start, stop = rsh.local_box(rsh.NamedSharding(mesh, tuple(x.placements)), tuple(x.shape))
+    span = (start[0] * l, stop[0] * l)
+    probs = torch.softmax(torch.matmul(xl, rl.to(xl.dtype)).to(torch.float32), dim=-1)
+
+    def gather(sel):
+        k = sel.shape[-1]
+        local = sel.reshape(stop[0] - start[0], l, k)
+        return rsh.gather_dim(local, mesh, tuple(x.placements), 0, b).reshape(n, k)
+
+    w, sel, rank = _route(probs, cfg, span, n, gather)
+    return w, sel, rank, span
+
+
+def _moe_sharded(p: dict, x, cfg: ModelConfig):
+    """`apply_moe` on DTensors: x split by batch, the experts over 'model'.
+
+    The routing is the reference's global one (`_moe_route_sharded`:
+    every rank computes its tokens' ranks in the whole dispatch group, so
+    a rank drops exactly the tokens the unsharded block drops). Each rank
+    then runs only its own experts' SwiGLU on its own tokens' kept
+    choices, in a (groups, local experts, capacity, d) buffer at the
+    slots the global routing gives them; no expert weight is gathered over
+    'model' (FSDP's 'embed' split is, `_moe_layout`). The combine is a
+    pending sum over the experts' mesh dims, formed and added in float32
+    and rounded once (as `nn.dense` adds split products), so it adds the
+    k outputs in another order than the unsharded block. Every local
+    operand declares its gradient's layout: the activations' and the
+    router's are pending over the experts' split, the weights' over the
+    batch's."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..runtime import sharding as rsh
+
+    b, l, d = x.shape
+    k = cfg.moe.top_k
+    dt = x.dtype
+    mesh = x.device_mesh
+    rows, experts, ws = _moe_layout(p, x)
+    nm = mesh.ndim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    xl = xn.to_local(grad_placements=tuple(Partial() if j in experts else x.placements[j]
+                                           for j in range(nm))).reshape(-1, d)
+    rl = rsh.redistribute(p["router"], (Replicate(),) * nm).to_local(grad_placements=tuple(
+        Partial() if j in rows or j in experts else Replicate() for j in range(nm)))
+    w, sel, rank, (t0, t1) = _moe_route_sharded(p, x, cfg, xl, rl)
+    if ROUTING_LOG is not None:
+        ROUTING_LOG.append(rsh.from_local(sel.reshape(-1, l, k), rsh.layout_of(x), (b, l, k)))
+    _, ng, cap = _moe_sizes(cfg, b * l)
+    (e0,), (e1,) = (c[:1] for c in rsh.local_box(rsh.layout_of(ws["w_gate"]),
+                                                 tuple(ws["w_gate"].shape)))
+    e_loc = e1 - e0
+    dev = xl.device
+    mine = (rank < cap) & (sel >= e0) & (sel < e1)
+    grp = (t0 + torch.arange(t1 - t0, device=dev)) // ng - t0 // ng
+    n_grp = (t1 - 1) // ng - t0 // ng + 1
+    nslot = n_grp * e_loc * cap
+    # each kept choice of a local expert has its own slot; the rest go to
+    # one spare slot past the buffer, which no output reads
+    slot = (grp[:, None] * e_loc + (sel - e0)) * cap + torch.clamp(rank, 0, cap - 1)
+    slot = torch.where(mine, slot, nslot).reshape(-1)
+    src = xl[:, None, :].expand(-1, k, d).reshape(-1, d)
+    buf = torch.zeros((nslot + 1, d), dtype=dt, device=dev).index_add(0, slot, src)
+    buf = buf[:nslot].reshape(n_grp, e_loc, cap, d)
+    wl = {name: w_.to_local(grad_placements=tuple(
+        pl if j in experts else Partial() if j in rows else Replicate()
+        for j, pl in enumerate(w_.placements))).to(dt) for name, w_ in ws.items()}
+    g = torch.einsum("xecd,edf->xecf", buf, wl["w_gate"])
+    u = torch.einsum("xecd,edf->xecf", buf, wl["w_up"])
+    hmid = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
+    eout = torch.einsum("xecf,efd->xecd", hmid, wl["w_down"])
+    eout = torch.cat([eout.reshape(nslot, d), eout.new_zeros(1, d)])
+    contrib = eout[slot].reshape(-1, k, d) * (w.to(dt) * mine.to(dt))[..., None]
+    y = contrib.to(torch.float32).sum(1).reshape(-1, l, d)
+    pending = tuple(Partial() if j in experts else x.placements[j] for j in range(nm))
+    y = nn.reduce_partial(rsh.from_local(y, rsh.NamedSharding(mesh, pending), (b, l, d))).to(dt)
+    if cfg.moe.n_shared:
+        sp = p["shared"]
+        y = y + nn.swiglu(xn, sp["w_gate"], sp["w_up"], sp["w_down"])
     return y

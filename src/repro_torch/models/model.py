@@ -26,9 +26,10 @@ tensors (K/V rows, recurrent states) are updated in place by `forward`:
 the returned cache holds the same tensors with the new values written,
 and a new position clock.
 
-Under a mesh (`runtime.sharding.activate`), the dense decoders
-(`TransformerLM` without MoE, MLA or a frontend) take params, tokens,
-labels and caches as DTensors: `init_cache` lays the cache out by
+Under a mesh (`runtime.sharding.activate`), the decoder-only LMs
+(`TransformerLM` with dense, MoE or MLA blocks, and its `dense_blocks`
+stack; not with a frontend) take params, tokens, labels and caches as
+DTensors: `init_cache` lays the cache out by
 `runtime.sharding.cache_sharding`, and `loss` is taken on the logits'
 batch and vocab shards (`_sharded_loss`). The other families raise there.
 """
@@ -115,7 +116,8 @@ class BaseLM:
         self.device = _device.resolve(device)
 
     def _mesh_ready(self) -> bool:
-        """Whether this model runs under a mesh (the dense decoders)."""
+        """Whether this model runs under a mesh (the decoder-only LMs
+        without a frontend)."""
         return False
 
     def _check_mesh(self) -> None:
@@ -220,8 +222,7 @@ class TransformerLM(BaseLM):
         return self.cfg.moe.n_dense_layers if self.cfg.moe else 0
 
     def _mesh_ready(self) -> bool:
-        cfg = self.cfg
-        return not (cfg.moe or cfg.mla or cfg.frontend)
+        return not self.cfg.frontend
 
     def desc(self):
         cfg = self.cfg

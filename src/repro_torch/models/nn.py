@@ -277,8 +277,9 @@ def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> No
         return
     if _split_dims(cache, 1):
         raise NotImplementedError(
-            "a cache split along its sequence dim (cache_sharding(seq_shard=True)) takes no "
-            "writes yet: ROADMAP.md queue A, item 14e")
+            "a cache split along its sequence dim (cache_sharding(seq_shard=True), or a "
+            "sequence as long as a head count) takes no writes yet: ROADMAP.md queue A, "
+            "item 14d")
     from ..runtime import sharding as _sh
 
     new = _sh.redistribute(new, tuple(cache.placements))
@@ -454,6 +455,27 @@ def split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     return x.reshape(b, l, n, dh)
 
 
+def split_last(x: torch.Tensor, *sizes: int) -> tuple:
+    """`x` cut along its last dim into consecutive parts of `sizes`. A
+    DTensor, whose last dim no mesh dim may split, is cut shard by shard,
+    each part laid out as `x`."""
+    if not is_sharded(x):
+        return tuple(torch.split(x, sizes, dim=-1))
+    if _split_dims(x, x.ndim - 1):
+        raise ValueError(f"split_last cuts an unsplit last dim, got {x.placements}")
+    return tuple(_like(t.contiguous(), x, tuple(x.shape[:-1]) + (n,))
+                 for t, n in zip(torch.split(x.to_local(), sizes, dim=-1), sizes))
+
+
+def on_shards(fn: Callable, x: torch.Tensor, shape) -> torch.Tensor:
+    """`fn(x)` for an `fn` that acts on each shard alone and keeps the
+    layout (an unsqueeze after the split dims, a cast): a DTensor's shard
+    is mapped and laid out as `x`, with global `shape`."""
+    if not is_sharded(x):
+        return fn(x)
+    return _like(fn(x.to_local()), x, shape)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
     """Rotary embedding. x: (B, L, H, Dh) with even Dh; positions: (B, L).
     A DTensor `x` (split by batch and heads) is rotated shard by shard;
@@ -604,7 +626,7 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
         heads = torch.arange(h0, h0 + hq_loc, device=kl.device) // rep - g0
     out = attention(ql, kl[:, :, heads], vl[:, :, heads], causal, q_offset, window,
                     kv_len, q_chunk)
-    return _like(out, q, (q.shape[0], q.shape[1], hq, v.shape[-1]))
+    return _like(out.contiguous(), q, (q.shape[0], q.shape[1], hq, v.shape[-1]))
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

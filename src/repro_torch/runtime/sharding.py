@@ -312,6 +312,24 @@ def _gather_local(local: torch.Tensor, mesh, j: int, d: int, extent: int) -> tor
     return torch.cat([parts[c].narrow(d, 0, _chunk(extent, n, c)[1]) for c in range(n)], dim=d)
 
 
+def gather_dim(local: torch.Tensor, mesh, placements, d: int, extent: int) -> torch.Tensor:
+    """The whole of dim `d` (global size `extent`) of a tensor laid out by
+    `placements`, from this rank's shard `local`: gathered over every mesh
+    dim that splits `d`, the last split first (`_gather_local`, staged
+    through the host). No gradient: the MoE's routing gathers its integer
+    expert choices with it."""
+    from torch.distributed.tensor import Shard
+
+    dims = [j for j, p in enumerate(placements) if isinstance(p, Shard) and p.dim == d]
+    extents = []
+    for j in dims:  # the extent each split cuts, as `shard_box` cuts it
+        extents.append(extent)
+        extent = _chunk(extent, mesh.size(j), mesh.get_local_rank(j))[1]
+    for j, e in zip(reversed(dims), reversed(extents)):
+        local = _gather_local(local, mesh, j, d, e)
+    return local
+
+
 def _reduce_scatter_local(local: torch.Tensor, mesh, j: int, d: int) -> torch.Tensor:
     """This rank's chunk of dim `d` of the sum of `local` over the ranks of
     mesh dim `j`: `reduce_scatter_tensor` on the dim's group, staged
@@ -575,6 +593,7 @@ __all__ = [
     "axis_size",
     "cache_sharding",
     "from_local",
+    "gather_dim",
     "lay_out",
     "layout_of",
     "local_box",

@@ -1212,3 +1212,56 @@ def test_mesh_train_step_two_ranks_on_card(cuda_device, tmp_path, mesh):
         assert p["metrics"]["grad_norm"] <= 1e-4 and p["metrics"]["wire_bits_per_value"] <= 1e-3
         for k, (share, most) in p["params"].items():
             assert share <= 5e-3 and most <= 2.0, (k, share, most)
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_moe_mla_layer_two_ranks_on_card(cuda_device, tmp_path, mesh):
+    """`test_mesh_layer_two_ranks_on_card` for one MoE layer of
+    deepseek-v2-236b at a reduced width (MLA, top-6 of 16 experts, shared
+    experts; `torch_shard_worker.card_config`), float32: on (1, 2) the MLA
+    heads and the experts split over 'model' (each rank runs its own
+    experts, the combine a float32 pending sum), on (2, 1) the batch over
+    'data' (the routing's expert choices gathered over it). The latent
+    cache has no head dim and stays whole over 'model'. The same bounds."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    payloads = W.run_job("card_layer", 2, tmp_path, timeout_s=300.0,
+                         args={"arch": "deepseek-v2-236b", "mesh": list(mesh)})
+    for p in payloads:
+        assert p["backend"] == "gloo" and p["device"].startswith("cuda"), p
+        assert p["specs"]["mlp/w_gate"] == ["model", None, None], p["specs"]
+        assert p["specs"]["attn/wkv_b"] == [None, "model"], p["specs"]
+        assert p["cache_specs"]["ckv"] == ["data", None, None], p["cache_specs"]
+        assert p["prefill"] <= 2e-2 and p["decode"] <= 2e-2, p
+        assert all(d <= 2e-2 for d in p["cache"].values()), p
+    assert payloads[0]["prefill"] == payloads[1]["prefill"]
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_moe_mla_train_step_two_ranks_on_card(cuda_device, tmp_path, mesh):
+    """`test_mesh_train_step_two_ranks_on_card` for deepseek-v2-236b at a
+    reduced width (its dense layer and one MoE layer, MLA, float32) under
+    `TRAIN_RULES`: the experts over 'model' and their 'embed' dim over
+    'data' (gathered before use, reduce-scattered back), held to the
+    unsharded step on the card at the same bounds."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    payloads = W.run_job("card_train", 2, tmp_path, timeout_s=300.0,
+                         args={"arch": "deepseek-v2-236b", "mesh": list(mesh)})
+    for p in payloads:
+        assert p["backend"] == "gloo" and p["device"].startswith("cuda"), p
+        assert p["specs"]["blocks/mlp/w_gate"] == [None, "model", "data", None], p["specs"]
+        assert p["specs"]["dense_blocks/attn/wq_b"] == [None, None, "model"], p["specs"]
+        assert p["loss"] <= 1e-5, p["loss"]
+        assert all(d <= 1e-4 for d in p["grads"].values()), p["grads"]
+        assert p["metrics"]["grad_norm"] <= 1e-4 and p["metrics"]["wire_bits_per_value"] <= 1e-3
+        for k, (share, most) in p["params"].items():
+            assert share <= 5e-3 and most <= 2.0, (k, share, most)

@@ -448,13 +448,80 @@ def _spec(x) -> list:
     return [list(e) if isinstance(e, tuple) else e for e in rsh.spec_entries(x)]
 
 
+def _case_weights(spec: dict, name: str, arch: str) -> dict:
+    """The job's weights file `name`, its "{arch}" filled in."""
+    return dict(np.load(os.path.join(spec["outdir"], name.replace("{arch}", arch))))
+
+
+class _GatherLog:
+    """Records, while entered, every host-staged gather of
+    `runtime.sharding` (`_gather_local`): the mesh dim's name, the shard's
+    shape and the gathered dim."""
+
+    def __enter__(self):
+        from repro_torch.runtime import sharding as rsh
+
+        self.seen, self._orig = [], rsh._gather_local
+
+        def logged(local, mesh, j, d, extent):
+            self.seen.append((mesh.mesh_dim_names[j], list(local.shape), d))
+            return self._orig(local, mesh, j, d, extent)
+
+        rsh._gather_local = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime import sharding as rsh
+
+        rsh._gather_local = self._orig
+
+
+def _moe_block(spec: dict, mesh, case: dict) -> dict:
+    """One MoE block (`blocks.apply_moe`, `blocks.moe_routing`) under
+    `SERVE_RULES` on `mesh`: the block's weights (`moe-NAME.npz`, laid out
+    by `tree_shardings`), x (B, L, d) drawn from numpy seed 5 and split by
+    batch: the gathered output, expert choices and kept flags."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.models import blocks, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+
+    base = reduced_for_smoke(get_config(case["arch"]))
+    cfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(base.moe, **case["moe"]))
+    desc = blocks.desc_moe(cfg)
+    lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
+                                   mnn.abstract_tree(desc)))
+    weights = dict(np.load(os.path.join(spec["outdir"], f"moe-{case['name']}.npz")))
+    p = nest({k: dist.put_global(torch.from_numpy(w), lay[k]) for k, w in weights.items()})
+    x = np.random.default_rng(5).standard_normal(tuple(case["shape"]) + (cfg.d_model,))
+    x = torch.as_tensor(x, dtype=torch.float32)
+    with rsh.activate(mesh, rsh.SERVE_RULES):
+        xd = dist.put_global(x, batch_shardings({"x": x}, mesh, x.shape[0])["x"])
+        with _GatherLog() as gathers:
+            y = blocks.apply_moe(p, xd, cfg)
+        sel, kept = blocks.moe_routing(p, xd, cfg)
+    return dict(y=dist.gather(y).numpy(), sel=dist.gather(sel).numpy(),
+                kept=dist.gather(kept).numpy(), gathers=gathers.seen)
+
+
 def scenario_mesh_serve(spec: dict, rank: int) -> dict:
-    """The dense decoder served under `SERVE_RULES` on a mesh of the job's
-    ranks: for each (dtype, batch) case, the reduced model's params (the
-    job's `weights.npz`, laid out by `tree_shardings`) through
+    """The decoder-only LMs served under `SERVE_RULES` on a mesh of the
+    job's ranks: for each (dtype, batch) case of `args["arch"]` (weights
+    `weights.npz`) or (arch, dtype, batch) case (`weights-ARCH.npz`), the
+    reduced model's params, laid out by `tree_shardings`, through
     `launch.serve.run_static(mesh=, teacher=, keep=True)`: the prefill and
-    teacher-forced decode steps. Rank 0 writes every case's logits, the
-    gathered cache and the param and cache specs to `mesh_serve.pkl`."""
+    teacher-forced decode steps, with the host-staged gathers they make.
+    Then each of `args["moe_blocks"]` (`_moe_block`), and each of
+    `args["refused"]`, a (arch, batch, prompt, gen) run whose cache layout
+    the port cannot write yet (its error). Rank 0 writes every case's
+    logits, the gathered cache and the param and cache specs to
+    `mesh_serve.pkl`."""
     import argparse
     import dataclasses
 
@@ -473,7 +540,6 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
     torch.set_num_threads(2)
     a = spec["args"]
     mesh = make_emulated_mesh(tuple(a["mesh"]), device="cpu")
-    weights = dict(np.load(os.path.join(spec["outdir"], "weights.npz")))
     teacher = np.load(os.path.join(spec["outdir"], "teacher.npy"))
     # the constraint's contract on plain tensors and DTensors
     x = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
@@ -491,8 +557,11 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
         back_equal=bool(torch.equal(back.to_local(), x)),
     )
     out = {}
-    for dtype, batch in a["cases"]:
-        cfg = dataclasses.replace(reduced_for_smoke(get_config(a["arch"])), dtype=dtype)
+    for case in a["cases"]:
+        arch, dtype, batch = case if len(case) == 3 else (a["arch"], *case)
+        weights = _case_weights(spec, "weights-{arch}.npz" if len(case) == 3 else "weights.npz",
+                                arch)
+        cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype=dtype)
         model = build_model(cfg, device="cpu")
         desc = model.desc()
         lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
@@ -501,8 +570,9 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
                              for k, w in weights.items()})
         args = argparse.Namespace(batch=batch, prompt_len=a["prompt_len"], gen=a["gen"],
                                   sample=False)
-        res = serve.run_static(args, cfg, model, params, mesh=mesh,
-                               teacher=teacher[:batch, : a["gen"] - 1], keep=True)
+        with _GatherLog() as gathers:
+            res = serve.run_static(args, cfg, model, params, mesh=mesh,
+                                   teacher=teacher[:batch, : a["gen"] - 1], keep=True)
         cache = _flat(res["cache"])
         whole = {k: dist.gather(v) for k, v in cache.items()}
         # the forward without a cache (no bfloat16 K/V on the way)
@@ -511,17 +581,29 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
             tok = dist.put_global(torch.as_tensor(prompts, dtype=torch.int32),
                                   batch_shardings({"t": prompts}, mesh, batch)["t"])
             logits, _ = model.forward(params, {"tokens": tok})
-        out[f"{dtype}/{batch}"] = dict(
+        out["/".join(str(c) for c in case)] = dict(
             forward=dist.gather(logits).numpy(),
             logits=[t.numpy() for t in res["logits"]], tokens=res["tokens"],
             cache={k: v.to(torch.float32).numpy() for k, v in whole.items()},
             param_specs={k: _spec(v) for k, v in _flat(params).items()},
-            cache_specs={k: _spec(v) for k, v in cache.items()},
+            cache_specs={k: _spec(v) for k, v in cache.items()}, gathers=gathers.seen,
         )
+    blocks_out = {c["name"]: _moe_block(spec, mesh, c) for c in a.get("moe_blocks", [])}
+    refused = {}
+    for arch, batch, prompt, gen in a.get("refused", []):
+        cfg = reduced_for_smoke(get_config(arch))
+        model = build_model(cfg, device="cpu")
+        params = rsh.place_params(model, mesh, rsh.SERVE_RULES)
+        args = argparse.Namespace(batch=batch, prompt_len=prompt, gen=gen, sample=False)
+        try:
+            serve.run_static(args, cfg, model, params, mesh=mesh)
+            refused[arch] = None
+        except NotImplementedError as e:
+            refused[arch] = str(e)
     if rank == 0:
-        _dump(spec, "mesh_serve.pkl", out)
+        _dump(spec, "mesh_serve.pkl", dict(out, moe_blocks=blocks_out) if blocks_out else out)
     return {"rank": rank, "backend": dist.backend(), "guard": guard,
-            "tokens": {k: v["tokens"].tolist() for k, v in out.items()}}
+            "tokens": {k: v["tokens"].tolist() for k, v in out.items()}, "refused": refused}
 
 
 def _gather_backward_check(mesh) -> dict:
@@ -600,13 +682,13 @@ def scenario_mesh_train(spec: dict, rank: int) -> dict:
     torch.set_num_threads(2)
     a = spec["args"]
     mesh = make_emulated_mesh(tuple(a["mesh"]), device="cpu")
-    weights = dict(np.load(os.path.join(spec["outdir"], "weights.npz")))
 
     def host(tree) -> dict:
         return {k: dist.gather(v).to(torch.float32).numpy() for k, v in _flat(tree).items()}
 
     out = {}
     for arch, rules_name, dtype in a["cases"]:
+        weights = _case_weights(spec, a.get("weights_file", "weights.npz"), arch)
         rules = getattr(rsh, rules_name)
         cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), n_layers=a["layers"],
                                   dtype=dtype)
@@ -638,19 +720,24 @@ def scenario_mesh_train(spec: dict, rank: int) -> dict:
                 ("params", params), ("m", opt["adam"]["m"]), ("v", opt["adam"]["v"]),
                 ("residual", opt["gc"]["residual"])) for k, v in _flat(tree).items()},
             step=int(opt["adam"]["step"]))
-    # the launcher on the mesh: an async save at step 2, the final save, a
-    # resume to the last step
-    la = a["launcher"]
-    ckpt = os.path.join(spec["outdir"], "ckpt")
-    args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt])
-    cfg, model = train.build(args)
-    first = train.run(args, cfg, model, rsh.place_params(model, mesh, rsh.TRAIN_RULES), mesh=mesh)
-    args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt, "--steps", str(la["resume_steps"]),
-                                          "--resume"])
-    again = train.run(args, cfg, model, rsh.place_params(model, mesh, rsh.TRAIN_RULES), mesh=mesh)
-    launcher = dict(losses=first["losses"], resumed=again["losses"],
-                    params_specs={k: _spec(v) for k, v in _flat(again["params"]).items()},
-                    params=host(again["params"]))
+    # the launcher on the mesh (where asked): an async save at step 2, the
+    # final save, a resume to the last step
+    launcher = dict(losses=[], resumed=[])
+    la = a.get("launcher")
+    if la:
+        ckpt = os.path.join(spec["outdir"], "ckpt")
+        args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt])
+        cfg, model = train.build(args)
+        rules = getattr(rsh, la.get("rules", "TRAIN_RULES"))
+        first = train.run(args, cfg, model, rsh.place_params(model, mesh, rules), mesh=mesh,
+                          rules=rules)
+        args = train.parse_args(la["argv"] + ["--ckpt-dir", ckpt, "--steps",
+                                              str(la["resume_steps"]), "--resume"])
+        again = train.run(args, cfg, model, rsh.place_params(model, mesh, rules), mesh=mesh,
+                          rules=rules)
+        launcher = dict(losses=first["losses"], resumed=again["losses"],
+                        params_specs={k: _spec(v) for k, v in _flat(again["params"]).items()},
+                        params=host(again["params"]))
     check = _gather_backward_check(mesh)
     if rank == 0:
         _dump(spec, "mesh_train.pkl", dict(cases=out, launcher=launcher))
@@ -659,15 +746,49 @@ def scenario_mesh_train(spec: dict, rank: int) -> dict:
             "launcher": launcher["losses"] + launcher["resumed"]}
 
 
-def scenario_card_layer(spec: dict, rank: int) -> dict:
-    """Two ranks on one card over gloo, a (1, 2) ('data', 'model') mesh: one
-    phi4-mini-width decoder layer (attention with its cache, SwiGLU MLP)
-    under `activate(mesh, SERVE_RULES)`, a 16-token prefill and one decode
-    step, against the same layer run unsharded on the card from the same
-    weights: each output's and the cache's distance, of their max."""
-    import torch
+def scenario_mesh_moe(spec: dict, rank: int) -> dict:
+    """`scenario_mesh_serve` with `args["serve"]`, then `scenario_mesh_train`
+    with `args["train"]`, in the same ranks: one payload with both."""
+    a = spec["args"]
+    served = scenario_mesh_serve(dict(spec, args=a["serve"]), rank)
+    trained = scenario_mesh_train(dict(spec, args=a["train"]), rank)
+    return dict(trained, tokens=served["tokens"], refused=served["refused"],
+                guard=served["guard"])
+
+
+def card_config(arch: str):
+    """The config a card test runs `arch` at: phi4-mini-3.8b at full width
+    and one layer; smollm-360m at full width and 2 layers, float32;
+    deepseek-v2-236b at a reduced width (d_model 1024, 16 heads, MLA latent
+    256, top-6 of 16 experts and 2 shared ones) and 2 layers, its leading
+    dense layer and one MoE layer, float32 (the routing then agrees with
+    the unsharded run's, as tests/test_torch_moe.py explains)."""
+    import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.config import MLACfg
+
+    cfg = get_config(arch)
+    if arch == "phi4-mini-3.8b":
+        return cfg.scaled(n_layers=1)
+    if arch == "smollm-360m":
+        return cfg.scaled(n_layers=2, dtype="float32")
+    return cfg.scaled(
+        n_layers=2, d_model=1024, n_heads=16, n_kv_heads=16, head_dim=64, d_ff=2816, vocab=8192,
+        dtype="float32", mla=MLACfg(q_lora=512, kv_lora=256, qk_nope=64, qk_rope=32, v_head=64),
+        moe=dataclasses.replace(cfg.moe, n_experts=16, d_ff_expert=512, d_ff_shared=1024))
+
+
+def scenario_card_layer(spec: dict, rank: int) -> dict:
+    """Two ranks on one card over gloo, on the ('data', 'model') mesh of
+    `args["mesh"]` (default (1, 2)): one decoder layer of `args["arch"]`
+    (`card_config`; default phi4-mini-3.8b: attention with its cache, SwiGLU
+    MLP; deepseek-v2-236b: MLA with its latent cache, the MoE) under
+    `activate(mesh, SERVE_RULES)`, a 16-token prefill and one decode step,
+    against the same layer run unsharded on the card from the same weights:
+    each output's and the cache's distance, of their max."""
+    import torch
+
     from repro_torch.launch.mesh import make_emulated_mesh
     from repro_torch.models import blocks, build_model
     from repro_torch.models import nn as mnn
@@ -676,16 +797,21 @@ def scenario_card_layer(spec: dict, rank: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_emulated_mesh((1, 2))
-    cfg = get_config("phi4-mini-3.8b").scaled(n_layers=1)
+    a = spec.get("args") or {}
+    mesh = make_emulated_mesh(tuple(a.get("mesh", (1, 2))))
+    cfg = card_config(a.get("arch", "phi4-mini-3.8b"))
     model = build_model(cfg, device=dev)
-    desc = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
+    if cfg.moe:
+        desc = {"attn": model._attn_desc(), "mlp": blocks.desc_moe(cfg)}
+    else:
+        desc = {"attn": blocks.desc_attn(cfg), "mlp": blocks.desc_mlp(cfg)}
     full = mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)
     lay = rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh, mnn.abstract_tree(desc))
     params = mnn.tree_map(dist.put_global, full, lay)
     gen = torch.Generator(device=dev).manual_seed(1)
     b, l = 2, 16
-    xs = torch.randn(b, l + 1, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    xs = torch.randn(b, l + 1, cfg.d_model, generator=gen, device=dev).to(dt)
     outs, caches = {}, {}
     for name, p in (("plain", full), ("sharded", params)):
         with rsh.activate(mesh, rsh.SERVE_RULES) if name == "sharded" else _nothing():
@@ -700,33 +826,39 @@ def scenario_card_layer(spec: dict, rank: int) -> dict:
             outs[name] = got
             caches[name] = {k: dist.gather(v) if name == "sharded" else v.cpu()
                             for k, v in cache.items()}
+            if name == "sharded":
+                caches["sharded_specs"] = dict(cache)
 
     def rel(a, w):
         a, w = a.to(torch.float32), w.to(torch.float32)
         return float((a - w).abs().max() / w.abs().max())
 
     return dict(
-        rank=rank, backend=dist.backend(), device=str(params["attn"]["wq"].to_local().device),
+        rank=rank, backend=dist.backend(), device=str(params["attn"]["norm"].to_local().device),
         specs={k: _spec(v) for k, v in _flat(params).items()},
+        cache_specs={k: _spec(v) for k, v in caches["sharded_specs"].items()},
         prefill=rel(outs["sharded"][0], outs["plain"][0]),
         decode=rel(outs["sharded"][1], outs["plain"][1]),
         cache={k: rel(caches["sharded"][k], caches["plain"][k]) for k in caches["plain"]},
     )
 
 
+
 def scenario_card_train(spec: dict, rank: int) -> dict:
     """Two ranks on one card over gloo, on the ('data', 'model') mesh of
-    `args["mesh"]`: smollm-360m at full width and 2 layers, float32, under
-    `activate(mesh, TRAIN_RULES)`, one batch of 4 x 64 tokens. On (1, 2),
-    15 query and 5 KV heads: `split_heads` gathers Q, K and V, the vocab is
-    split over 'model'; on (2, 1), FSDP: the batch split over 'data', each
-    weight's 'embed' dim gathered before its product and its gradient
-    reduce-scattered. The loss and gradients (`steps.loss_and_grads`) and
-    one train step with gradient compression, against the same on the
-    unsharded params on the card. Each quantity's distance, of its max."""
+    `args["mesh"]`: `args["arch"]` at its `card_config` (default
+    smollm-360m at full width and 2 layers, float32) under
+    `activate(mesh, TRAIN_RULES)`, one batch of 4 x 64 tokens. For
+    smollm-360m on (1, 2), 15 query and 5 KV heads: `split_heads` gathers
+    Q, K and V, the vocab is split over 'model'; on (2, 1), FSDP: the batch
+    split over 'data', each weight's 'embed' dim gathered before its
+    product and its gradient reduce-scattered. deepseek-v2-236b adds MLA's
+    heads and the experts over 'model', and the MoE routing over the batch
+    split. The loss and gradients (`steps.loss_and_grads`) and one train
+    step with gradient compression, against the same on the unsharded
+    params on the card. Each quantity's distance, of its max."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.launch.dryrun import batch_shardings
     from repro_torch.launch.mesh import make_emulated_mesh
@@ -739,7 +871,7 @@ def scenario_card_train(spec: dict, rank: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_emulated_mesh(tuple(spec["args"]["mesh"]))
-    cfg = get_config("smollm-360m").scaled(n_layers=2, dtype="float32")
+    cfg = card_config(spec["args"].get("arch", "smollm-360m"))
     model = build_model(cfg, device=dev)
     desc = model.desc()
     full = mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -787,6 +919,7 @@ SCENARIOS = {
     "card": scenario_card,
     "card_layer": scenario_card_layer,
     "card_train": scenario_card_train,
+    "mesh_moe": scenario_mesh_moe,
     "mesh_serve": scenario_mesh_serve,
     "mesh_train": scenario_mesh_train,
     "fault": scenario_fault,
