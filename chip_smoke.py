@@ -150,7 +150,7 @@ phase that goes wrong:
    `TRAIN_RULES`, saved raw and restored under (1, 4) bit for bit; and
    K1/K2 at the shard shapes (`[sharded-kernels]`);
 15. serving under a mesh (`[mesh-serve]`, after `[sharded]`):
-   phi4-mini-3.8b at full width and 8 of its 32 layers served unsharded on the card
+   phi4-mini-3.8b at full width and 4 of its 32 layers served unsharded on the card
    (`launch.serve.run_static`: a prefill of 4 x 64 tokens and 16 greedy
    decode steps), then by four ranks over gloo on a (2, 2) ('data',
    'model') mesh through `run_static(mesh=)` under `SERVE_RULES` (params
@@ -164,7 +164,7 @@ phase that goes wrong:
    collectives of a prefill and of a decode step by kind, one decode step
    traced on rank 0, the peak memory of each rank. No kernel runs here;
 16. training under a mesh (`[mesh-train]`, after `[mesh-serve]`):
-   smollm-360m at full width and 8 of its 32 layers trained unsharded on the card
+   smollm-360m at full width and 4 of its 32 layers trained unsharded on the card
    (`launch.train.main`, 2 steps of 8 x 256 tokens with gradient
    compression), then by four ranks over gloo on a (2, 2) ('data',
    'model') mesh through `launch.train.run(mesh=)` under `TRAIN_RULES`
@@ -188,7 +188,18 @@ phase that goes wrong:
    and cache leaf (the MLA latent too) on its placements, the gathered
    caches within the bound, the share of tokens whose experts differ from
    the unsharded run at the forced steps. No kernel runs here;
-18. one JSON line with every kernel's launches on its path, error, times,
+18. the other families under a mesh (`[mesh-families]`, after
+   `[mesh-moe]`): internvl2-76b (2 of 80 layers, 256 patch embeddings),
+   seamless-m4t-large-v2 (2 + 2 of 24 + 24 layers, 1024 frames),
+   zamba2-1.2b and xlstm-1.3b (8 layers each) at full width, each served
+   unsharded, then ONE four-rank job on (2, 2) under `SERVE_RULES`
+   serving each in turn as 15 serves phi4-mini: the prefill's and forced
+   steps' logits within `MESH_SERVE_RTOL`, every param and cache leaf on
+   its placements, the gathered caches (K/V, the Mamba2 and mLSTM/sLSTM
+   states and conv windows, the encoder memory) within the bound, decode
+   ms beside the unsharded run's, the collectives of a decode step, the
+   peak of each rank. No kernel runs here;
+19. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -209,8 +220,8 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 `--zoo` only the phases of 13, `--sharded` only the phase of 14 (with the
-fields it needs), `--mesh-serve`, `--mesh-train` and `--mesh-moe` only the
-phases of 15, 16 and 17, and
+fields it needs), `--mesh-serve`, `--mesh-train`, `--mesh-moe` and
+`--mesh-families` only the phases of 15, 16, 17 and 18, and
 `--train-profile` traces three full-width train steps (`train_profile`).
 """
 
@@ -3480,12 +3491,13 @@ def sharded_only(torch, np, dev) -> dict:
 # [mesh-serve] and [mesh-moe]: decoders served under SERVE_RULES, 4 ranks
 # ---------------------------------------------------------------------------
 
-#: phi4-mini-3.8b at full width and 8 of its 32 layers on a (2, 2)
+#: phi4-mini-3.8b at full width and 4 of its 32 layers on a (2, 2)
 #: ('data', 'model') mesh of 4 ranks sharing the card over gloo; a prefill
 #: of 4 x 64 tokens, 8 decode steps fed the unsharded run's greedy tokens,
-#: then 8 greedy ones (the depth cut pays for `[mesh-moe]`)
+#: then 8 greedy ones (the depth cut pays for `[mesh-moe]` and
+#: `[mesh-families]`)
 MESH_SERVE_ARCH, MESH_SERVE_MESH, MESH_SERVE_RANKS = "phi4-mini-3.8b", (2, 2), 4
-MESH_SERVE_LAYERS = 8
+MESH_SERVE_LAYERS = 4
 #: `[mesh-moe]`: deepseek-v2-236b at full width and 2 of its 60 layers (the
 #: leading dense layer in `dense_blocks` and one MoE layer, both MLA) served
 #: as `[mesh-serve]` serves phi4-mini
@@ -3511,18 +3523,18 @@ def _mesh_serve_args(device: str, arch: str, smoke: bool):
                             + (["--smoke"] if smoke else []))
 
 
-def _mesh_serve_build(torch, args, n_layers: int, mesh=None):
-    """`launch.serve.build(args, mesh)` with the config cut to `n_layers`
-    (serve's launcher has no depth flag): (cfg, model, params), the params
-    from a generator seeded 0, laid out by `SERVE_RULES` on `mesh` when
-    given."""
+def _mesh_serve_build(torch, args, mesh=None, **cut):
+    """`launch.serve.build(args, mesh)` with the config cut in depth by
+    `cut` (`n_layers`, `n_enc_layers`: serve's launcher has no depth flag):
+    (cfg, model, params), the params from a generator seeded 0, laid out
+    by `SERVE_RULES` on `mesh` when given."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduced_for_smoke
     from repro_torch.models import nn as mnn
     from repro_torch.runtime import sharding as rsh
 
     cfg = get_config(args.arch)
-    cfg = (reduced_for_smoke(cfg) if args.smoke else cfg).scaled(n_layers=n_layers)
+    cfg = (reduced_for_smoke(cfg) if args.smoke else cfg).scaled(**cut)
     model = build_model(cfg, device=args.device)
     if mesh is not None:
         return cfg, model, rsh.place_params(model, mesh, rsh.SERVE_RULES)
@@ -3579,7 +3591,7 @@ def phase_mesh_serve(torch, np, dev, card, arch: str = MESH_SERVE_ARCH, smoke: b
     shutil.rmtree(wd, ignore_errors=True)
     wd.mkdir(parents=True)
     args = _mesh_serve_args(dev.type, arch, smoke)
-    cfg, model, params = _mesh_serve_build(torch, args, n_layers)
+    cfg, model, params = _mesh_serve_build(torch, args, n_layers=n_layers)
     n_params = sum(a.numel() for a in _leaves(params))
     blocks.ROUTING_LOG = [] if cfg.moe else None
     try:
@@ -3774,7 +3786,7 @@ def mesh_serve_worker(spec: dict, rank: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     mesh = make_emulated_mesh(MESH_SERVE_MESH, device=a["device"])
     args = _mesh_serve_args(a["device"], a["arch"], a["smoke"])
-    cfg, model, params = _mesh_serve_build(torch, args, a["n_layers"], mesh)
+    cfg, model, params = _mesh_serve_build(torch, args, mesh, n_layers=a["n_layers"])
     desc = model.desc()
     flat = _flat(params)
     rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh, mnn.abstract_tree(desc)))
@@ -3876,16 +3888,274 @@ def mesh_serve_only(torch, np, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [mesh-families]: the vision frontend, the encoder-decoder, the hybrid and
+# xLSTM served under SERVE_RULES, 4 ranks
+# ---------------------------------------------------------------------------
+
+#: each model at full width, cut in depth: internvl2-76b at 2 of its 80
+#: layers (with its 256 patch embeddings), seamless-m4t-large-v2 at 2 of
+#: its 24 encoder and 2 of its 24 decoder layers (1024 frames), zamba2-1.2b
+#: at 8 of its 38 layers (a group of 6 Mamba2 layers with the shared
+#: attention and a tail of 2), xlstm-1.3b at 8 of its 48 (a group of 7
+#: mLSTM and 1 sLSTM)
+MESH_FAMILIES = {
+    "internvl2-76b": dict(n_layers=2),
+    "seamless-m4t-large-v2": dict(n_layers=2, n_enc_layers=2),
+    "zamba2-1.2b": dict(n_layers=8),
+    "xlstm-1.3b": dict(n_layers=8),
+}
+MESH_FAMILIES_TIMEOUT_S = 900.0
+#: each model's bound on its logits and caches, of max|x|: `MESH_SERVE_RTOL`'s
+#: rule, max(2e-2, d), d the reference's own distance between its sharded
+#: and unsharded bfloat16 runs of the reduced model on (2, 2)
+#: (tests/test_torch_mesh_families.py: 0.0359 for zamba2, 0.0274 for xlstm,
+#: 0.011 for the other two; through the recurrences a bfloat16 flip grows)
+MESH_FAMILIES_RTOL = {"internvl2-76b": MESH_SERVE_RTOL, "seamless-m4t-large-v2": MESH_SERVE_RTOL,
+                      "zamba2-1.2b": 3.6e-2, "xlstm-1.3b": 2.8e-2}
+#: cache leaves held to another bound than their model's: the sLSTM's
+#: normalized accumulators c and n move in the reference itself by 0.054
+#: and 0.062 of max|x| between its sharded and unsharded bfloat16 runs of
+#: the reduced xlstm on (2, 2), and by 0.118 and 0.107 between its bfloat16
+#: and float32 runs (every other state within 0.03): max(2e-2, d), d the
+#: larger (tests/test_torch_ssm.py's rule)
+MESH_FAMILIES_LEAF_RTOL = {("xlstm-1.3b", "groups/s/c"): 0.12, ("xlstm-1.3b", "groups/s/n"): 0.11}
+
+
+def mesh_families_dir() -> Path:
+    return ROOT / "build" / "mesh_families"
+
+
+def _batch_dims(model, max_len: int) -> dict:
+    """Each cache leaf's batch dim: the one that differs between the specs
+    of a batch of 1 and of 2."""
+    one, two = _flat(model.cache_desc(1, max_len)), _flat(model.cache_desc(2, max_len))
+    return {k: next(i for i, (a, b) in enumerate(zip(one[k].shape, two[k].shape)) if a != b)
+            for k in one if k != "pos"}
+
+
+def phase_mesh_families(torch, np, dev, card, smoke: bool = False) -> dict:
+    """`[mesh-families]`: each `MESH_FAMILIES` model served unsharded on
+    the card by `launch.serve.run_static` (a prefill of 4 x 64 after the
+    patches or frames, 16 greedy steps), its logits, tokens and cache kept
+    on the host, the card freed after each; then ONE four-rank job
+    (`launch/mhrun.py`, gloo) on a (2, 2) ('data', 'model') mesh serving
+    the models in turn through `run_static(mesh=)` under `SERVE_RULES`,
+    params drawn from the same generator and kept by box, the card freed
+    between models: the same prefill, 8 decode steps fed the unsharded
+    greedy tokens, then 8 greedy steps. For each model: the prefill's and
+    the forced steps' logits within its `MESH_FAMILIES_RTOL` of max|logit|
+    of the unsharded run's (the caches too, but for the leaves of
+    `MESH_FAMILIES_LEAF_RTOL`), every param and cache leaf on the placements its
+    rules give, the gathered caches within the same bound of the
+    unsharded ones (K/V on the rows both runs wrote from the same tokens;
+    the recurrent states, conv windows and the encoder memory on the batch
+    rows whose tokens agree at every step), the tokens that differ with
+    the unsharded top-2 margin, the decode-step ms (the maximum over
+    ranks) beside the unsharded run's, the collectives of one decode step
+    by kind and the peak memory of each rank. Every model is reported
+    before a failed check fails the phase; a rank's error fails it too.
+    No kernel of K1-K6 runs here."""
+    import shutil
+
+    from repro_torch.launch import mhrun, serve
+
+    free_card(torch)
+    wd = mesh_families_dir()
+    shutil.rmtree(wd, ignore_errors=True)
+    t0 = time.perf_counter()
+    base_ms, n_params = {}, {}
+    for arch in MESH_FAMILIES:
+        ad = wd / arch
+        ad.mkdir(parents=True)
+        args = _mesh_serve_args(dev.type, arch, smoke)
+        cfg, model, params = _mesh_serve_build(torch, args, **MESH_FAMILIES[arch])
+        n_params[arch] = sum(a.numel() for a in _leaves(params))
+        base = serve.run_static(args, cfg, model, params, keep=True)
+        base_ms[arch] = dict(prefill_ms=base["prefill_s"] * 1e3,
+                             decode_ms_per_step=base["decode_s"] * 1e3 / (args.gen - 1))
+        np.save(ad / "tokens.npy", base["tokens"])
+        np.save(ad / "logits.npy", np.stack([t.numpy() for t in base["logits"]]))
+        torch.save({k: v.cpu() for k, v in _cache_stacks(base["cache"]).items()}, ad / "cache.pt")
+        del model, params, base
+        free_card(torch)
+    unsharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = mhrun.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-worker"], MESH_SERVE_RANKS,
+        scenario="mesh_families", backend="gloo", timeout_s=MESH_FAMILIES_TIMEOUT_S,
+        workdir=str(wd / "mhrun"), extra_env={"OMP_NUM_THREADS": "2"},
+        args=dict(smoke=smoke, device=dev.type, dir=str(wd)),
+    )
+    job_s = time.perf_counter() - t0
+    payloads = mhrun.require_success(results)
+    out, failed = {}, []
+    for arch in MESH_FAMILIES:
+        got = [p["models"][arch] for p in payloads]
+        g0 = got[0]
+        bound = MESH_FAMILIES_RTOL[arch]
+        for g in got:
+            if g["tokens"] != g0["tokens"]:
+                failed.append(f"{arch}: rank {g['rank']} holds other tokens")
+            if g["param_misplaced"]:
+                failed.append(f"{arch}: rank {g['rank']}: params off their rules' placements: "
+                              f"{g['param_misplaced'][:4]}")
+            if g["cache_misplaced"]:
+                failed.append(f"{arch}: rank {g['rank']}: cache off cache_sharding's "
+                              f"placements: {g['cache_misplaced']}")
+        rel = g0["rel"]
+        if len(rel) != 1 + MESH_SERVE_FORCED:
+            failed.append(f"{arch}: {len(rel)} logits compared")
+        failed += [f"{arch} step {i}: sharded logits {d:.4g} of max|logit| off the unsharded "
+                   f"run's (bound {bound})" for i, d in enumerate(rel) if d > bound]
+        leaf_bound = {k: MESH_FAMILIES_LEAF_RTOL.get((arch, k), bound) for k in g0["cache_rel"]}
+        failed += [f"{arch} cache {k}: {d:.4g} of max|cache| off the unsharded cache "
+                   f"(bound {leaf_bound[k]})" for k, d in g0["cache_rel"].items()
+                   if d > leaf_bound[k]]
+        want = np.load(wd / arch / "tokens.npy")
+        logits = np.load(wd / arch / "logits.npy", mmap_mode="r")
+        tok = np.asarray(g0["tokens"])
+        differ = [dict(row=int(r), step=int(c), sharded=int(tok[r, c]), unsharded=int(want[r, c]),
+                       unsharded_top2_margin=_margin(np, logits[c, r]))
+                  for r, c in zip(*np.nonzero(tok != want))]
+        out[arch] = dict(
+            layers=MESH_FAMILIES[arch], params=n_params[arch], rel_by_step=rel,
+            cache_rel=g0["cache_rel"], cache_bound=leaf_bound,
+            state_rows_compared=g0["state_rows"],
+            tokens_differ=differ, leaves=g0["leaves"],
+            decode_ms_per_step=max(g["decode_ms"] for g in got),
+            decode_ms_by_rank=[g["decode_ms"] for g in got],
+            prefill_ms=max(g["prefill_ms"] for g in got), unsharded=base_ms[arch],
+            collectives_decode_step=g0["comm_decode"],
+            staged_gathers_decode_step=g0["staged_decode"],
+            peak_gib_by_rank=[g["peak_gib"] for g in got])
+        log("mesh-families", json.dumps(dict(arch=arch, **out[arch], bound=bound, card=card)))
+    log("mesh-families", json.dumps(dict(
+        mesh=payloads[0]["mesh"], backend=payloads[0]["backend"], ranks=len(payloads),
+        unsharded_s=unsharded_s, job_s=job_s, forced_steps=MESH_SERVE_FORCED,
+        free_steps=MESH_SERVE_FREE, card=card)))
+    shutil.rmtree(wd, ignore_errors=True)
+    check(not failed, "[mesh-families] " + "; ".join(failed))
+    return dict(models=out, job_s=job_s, unsharded_s=unsharded_s)
+
+
+def mesh_families_worker(spec: dict, rank: int) -> dict:
+    """One rank of `[mesh-families]` (`phase_mesh_families` says what it
+    does): each model in turn, the card freed after each."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.launch.mesh import describe_mesh, make_emulated_mesh
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import dist
+    from repro_torch.runtime import sharding as rsh
+    from repro_torch.runtime.steps import make_decode_step
+
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    a = spec["args"]
+    cuda = a["device"] == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_emulated_mesh(MESH_SERVE_MESH, device=a["device"])
+    models = {}
+    for arch in MESH_FAMILIES:
+        wd = Path(a["dir"]) / arch
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        args = _mesh_serve_args(a["device"], arch, a["smoke"])
+        cfg, model, params = _mesh_serve_build(torch, args, mesh, **MESH_FAMILIES[arch])
+        desc = model.desc()
+        flat = _flat(params)
+        rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
+                                         mnn.abstract_tree(desc)))
+        param_misplaced = [k for k, v in flat.items()
+                           if tuple(v.placements) != tuple(rules[k].placements)]
+        want_tokens = np.load(wd / "tokens.npy")
+        teacher = want_tokens[:, :MESH_SERVE_FORCED]
+        res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True)
+        cache = res["cache"]
+        patches = cfg.frontend_len if cfg.frontend == "vision" else 0
+        max_len = patches + args.prompt_len + args.gen
+        lay = _flat(rsh.cache_sharding(model.cache_desc(args.batch, max_len), mesh, args.batch,
+                                       {cfg.n_kv_heads, cfg.n_heads}))
+        cache_misplaced = [k for k, v in _flat(cache).items()
+                           if tuple(v.placements) != tuple(lay[k].placements)]
+        whole = {k: dist.gather(v, dst=0) for k, v in _cache_stacks(cache).items()}
+        # K/V rows written from the same tokens in both runs; the other
+        # states on the batch rows whose tokens agree at every step
+        rows = patches + args.prompt_len + MESH_SERVE_FORCED
+        same = np.all(res["tokens"] == want_tokens, axis=1)
+        rel, cache_rel = [], {}
+        if rank == 0:
+            base = np.load(wd / "logits.npy", mmap_mode="r")
+            for i in range(1 + MESH_SERVE_FORCED):
+                w = np.asarray(base[i])
+                rel.append(float(np.abs(res["logits"][i].numpy() - w).max() / np.abs(w).max()))
+            base_cache = torch.load(wd / "cache.pt")
+            bdims = _batch_dims(model, max_len)
+            for k, v in whole.items():
+                w, g = base_cache[k].to(torch.float32), v.to(torch.float32)
+                bd = bdims[k]
+                if k.endswith(("/k", "/v")):  # (..., B, T, H, D)
+                    w, g = w.narrow(bd + 1, 0, rows), g.narrow(bd + 1, 0, rows)
+                elif k != "memory":  # the memory is written by the prefill alone
+                    keep = torch.as_tensor(np.nonzero(same)[0])
+                    if not len(keep):
+                        continue
+                    w, g = w.index_select(bd, keep), g.index_select(bd, keep)
+                cache_rel[k] = float((g - w).abs().max() / max(float(w.abs().max()), 1e-30))
+        # one more decode step on the final cache, not timed: its collectives
+        decode = make_decode_step(model)
+        with rsh.activate(mesh, rsh.SERVE_RULES):
+            tok = dist.put_global(torch.as_tensor(want_tokens[:, -1:], dtype=torch.int32,
+                                                  device=model.device),
+                                  batch_shardings({"t": want_tokens}, mesh, args.batch)["t"])
+            staged = []
+            gather_local = rsh._gather_local
+
+            def logged(local, mesh_, j, d, extent):
+                staged.append(mesh_.mesh_dim_names[j])
+                return gather_local(local, mesh_, j, d, extent)
+
+            rsh._gather_local = logged
+            try:
+                with CommDebugMode() as comm:
+                    decode(params, tok, cache)
+            finally:
+                rsh._gather_local = gather_local
+        models[arch] = dict(
+            rank=rank, leaves=len(flat) + len(_flat(cache)), param_misplaced=param_misplaced,
+            cache_misplaced=cache_misplaced, tokens=res["tokens"].tolist(), rel=rel,
+            cache_rel=cache_rel, state_rows=int(same.sum()),
+            prefill_ms=res["prefill_s"] * 1e3, decode_ms=res["decode_s"] * 1e3 / (args.gen - 1),
+            comm_decode={str(k): v for k, v in comm.get_comm_counts().items()},
+            staged_decode={d: staged.count(d) for d in ("data", "model")},
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+        del model, params, cache, res, whole
+        if cuda:
+            free_card(torch)
+    return dict(rank=rank, backend=dist.backend(), mesh=describe_mesh(mesh)["shape"],
+                models=models)
+
+
+def mesh_families_only(torch, np, dev) -> dict:
+    """`[mesh-families]` alone."""
+    return phase_mesh_families(torch, np, dev, card_line())
+
+
+# ---------------------------------------------------------------------------
 # [mesh-train]: the dense decoder trained under TRAIN_RULES, 4 ranks
 # ---------------------------------------------------------------------------
 
-#: smollm-360m at full width and 8 of its 32 layers on a (2, 2) ('data',
+#: smollm-360m at full width and 4 of its 32 layers on a (2, 2) ('data',
 #: 'model') mesh of 4 ranks sharing the card over gloo: 2 compressed steps
 #: of 8 x 256 tokens (an async save after step 2, then the final save of
 #: the same step), a restore of step 2 under the mesh, then a resumed run
-#: to step 3 (the depth cut pays for `[mesh-moe]`)
+#: to step 3 (the depth cut pays for `[mesh-moe]` and `[mesh-families]`)
 MESH_TRAIN_ARCH, MESH_TRAIN_MESH, MESH_TRAIN_RANKS = "smollm-360m", (2, 2), 4
-MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_LAYERS = 4
 MESH_TRAIN_STEPS, MESH_TRAIN_RESUME = 2, 3
 #: the launcher computes in bfloat16 (the config's dtype): max(2e-2, d) of
 #: the loss, d the reference's own sharded-vs-unsharded distance at
@@ -4082,6 +4352,7 @@ def main() -> int:
 
         return mhrun.worker_main(sys.argv[-1], {"sharded": sharded_worker,
                                                 "mesh_serve": mesh_serve_worker,
+                                                "mesh_families": mesh_families_worker,
                                                 "mesh_train": mesh_train_worker,
                                                 "gloo_probe": gloo_probe_worker})
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4124,6 +4395,10 @@ def main() -> int:
     parser.add_argument("--mesh-moe", action="store_true",
                         help="only run the four-rank MoE and MLA serving phase under SERVE_RULES "
                         "(mesh_moe_only)")
+    parser.add_argument("--mesh-families", action="store_true",
+                        help="only run the four-rank serving phase of the vision frontend, the "
+                        "encoder-decoder, the hybrid and xLSTM under SERVE_RULES "
+                        "(mesh_families_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -4168,26 +4443,39 @@ def main() -> int:
                           (args.mesh_serve, mesh_serve_only),
                           (args.mesh_train, mesh_train_only),
                           (args.mesh_moe, mesh_moe_only),
+                          (args.mesh_families, mesh_families_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)
             return 0
 
+    marks = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        """The wall seconds of the phases just run, and of the run so far."""
+        marks.append(time.perf_counter())
+        log("time", json.dumps({"phases": phases, "s": marks[-1] - marks[-2],
+                                "run_s": marks[-1] - t0}))
+
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB > L2
     parity = phase_parity(torch, np, dev, flush)
     phase_parity_dequantize(torch, np, dev, flush, parity)
     phase_parity_bot(torch, np, dev, flush, parity)
     del flush
+    lap("parity")
     atm, hurricane = paper_fields(np)
     rows, launches = phase_main(torch, np, dev, atm, hurricane)
     phase_kernels_at_main(torch, dev, rows, parity)
+    lap("fields, main")
     phase_select_many(torch, np, dev, atm, hurricane)
     for name, n in phase_pytree(torch, np, dev, atm, hurricane, rows, card).items():
         launches[name] += n
     phase_warm(torch, np, dev, atm, hurricane)
+    lap("select_many, pytree, warm")
     for name, n in phase_ckpt(torch, np, dev, atm, hurricane, rows, card).items():
         launches[name] += n
+    lap("ckpt")
     by_mode = phase_targets(torch, np, dev, atm, hurricane)
     target_launches = phase_target_roundtrips(torch, np, dev, atm, hurricane, by_mode)
     for name, n in phase_target_pytree(torch, np, dev, atm, hurricane).items():
@@ -4195,35 +4483,49 @@ def main() -> int:
     for name, n in target_launches.items():
         check(n >= 1, f"{name} never launched from the target phase")
         launches[name] += n
+    lap("targets")
     for name, n in phase_sharded(torch, np, dev, atm, hurricane, card).items():
         launches[name] += n
+    lap("sharded")
     phase_mesh_serve(torch, np, dev, card)
+    lap("mesh-serve")
     phase_mesh_train(torch, np, dev, card)
+    lap("mesh-train")
     phase_mesh_moe(torch, np, dev, card)
+    lap("mesh-moe")
+    phase_mesh_families(torch, np, dev, card)
+    lap("mesh-families")
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)
     phase_targets_cpu_vs_card(torch, np, dev)
+    lap("decode, cpu-vs-card")
     launches.update(phase_kv(torch, np, dev))
+    lap("kv")
     phase_serve_static(torch, np, dev)
     k6_serve, served = phase_serve(torch, np, dev)
     launches["bot3d_fused"] += k6_serve
     phase_serve_raw(torch, np, dev, served)
     del served
     free_card(torch)
+    lap("serve")
     launches["bot3d_fused"] += phase_serve_moe(torch, np, dev)
     free_card(torch)
     phase_serve_mla(torch, np, dev)
     free_card(torch)
     phase_moe_mla_cpu_vs_card(torch, np, dev)
     free_card(torch)
+    lap("serve-moe, serve-mla")
     recurrent_only(torch, np, dev)
     free_card(torch)
+    lap("recurrent")
     phase_train(torch, np, dev)
     phase_train_ckpt(torch, np, dev)
     phase_train_cpu_vs_card(torch, np, dev)
     free_card(torch)
+    lap("train")
     zoo_only(torch, np, dev)
+    lap("zoo")
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():

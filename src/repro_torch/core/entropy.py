@@ -153,14 +153,30 @@ def encode(symbols: np.ndarray, table: HuffmanTable) -> bytes:
     return np.packbits(bits).tobytes()
 
 
+def _windows(words: np.ndarray, pos: np.ndarray, maxlen: int) -> np.ndarray:
+    """The `maxlen` stream bits from each bit offset in `pos` on, MSB first,
+    as ints; `words[k]` holds bytes k..k+3 big-endian (maxlen + 7 <= 32)."""
+    return (words[pos >> 3] >> (32 - maxlen - (pos & 7))) & ((1 << maxlen) - 1)
+
+
 def decode(buf: bytes, table: HuffmanTable, count: int) -> np.ndarray:
-    """Table-driven canonical Huffman decode (dense 2^maxlen lookup)."""
+    """Table-driven canonical Huffman decode (dense 2^maxlen lookup),
+    vectorized over segments of the bit stream.
+
+    Each segment is walked from its first bit at once, as if a codeword
+    began there. The true walk enters a segment at the first codeword
+    boundary past its start; re-walked from there, it meets the segment's
+    own walk within a few codewords (Huffman codes resynchronize) and
+    follows it from that bit on. So the codeword boundaries are the
+    re-walks up to each meeting point and the segments' own walks after
+    it; entries move on until no segment's exit changes. The symbols are
+    the reference's sequential walk's, bit for bit."""
     if count == 0:
         return np.zeros(0, dtype=np.int64)
     maxlen = int(table.lens.max())
     # dense lookup: top `maxlen` bits -> (symbol, length)
     lut_sym = np.zeros(1 << maxlen, dtype=np.int64)
-    lut_len = np.zeros(1 << maxlen, dtype=np.int32)
+    lut_len = np.zeros(1 << maxlen, dtype=np.int64)
     for s in range(len(table.lens)):
         l = int(table.lens[s])
         if l == 0:
@@ -169,15 +185,66 @@ def decode(buf: bytes, table: HuffmanTable, count: int) -> np.ndarray:
         span = 1 << (maxlen - l)
         lut_sym[prefix : prefix + span] = s
         lut_len[prefix : prefix + span] = l
-    bits = np.unpackbits(np.frombuffer(buf, dtype=np.uint8))
-    bits = np.concatenate([bits, np.zeros(maxlen, dtype=np.uint8)])
-    # precompute every bit-window as an int (vectorized), then walk them
-    weights = (1 << np.arange(maxlen - 1, -1, -1)).astype(np.int64)
-    windows = np.lib.stride_tricks.sliding_window_view(bits, maxlen).astype(np.int64) @ weights
-    out = np.empty(count, dtype=np.int64)
-    pos = 0
-    for i in range(count):
-        w = windows[pos]
-        out[i] = lut_sym[w]
-        pos += int(lut_len[w])
-    return out
+    # a window no codeword starts (an incomplete code, read off a codeword
+    # boundary) steps one bit, so every walk moves on
+    step = np.maximum(lut_len, 1)
+    b = np.frombuffer(bytes(buf) + bytes(4), dtype=np.uint8).astype(np.int64)
+    words = (b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]
+    nbits = 8 * len(buf)
+    seg = max(512, -(-nbits // 65536))
+    starts = np.arange(0, nbits, seg, dtype=np.int64)
+    ends = np.minimum(starts + seg, nbits)
+
+    def advance(p):
+        return p + step[_windows(words, p, maxlen)]
+
+    # 1) each segment's own walk: its boundaries in `seen`, its exit
+    seen = np.zeros(nbits, dtype=bool)
+    exits = starts.copy()
+    lanes, p = np.arange(len(starts)), starts.copy()
+    while lanes.size:
+        seen[p] = True
+        p = advance(p)
+        exits[lanes] = p
+        inside = p < ends[lanes]
+        lanes, p = lanes[inside], p[inside]
+
+    # 2) the true entries: re-walk a segment from its entry until it meets
+    # the segment's own walk (then it leaves where that walk left) or the
+    # segment's end; repeat while an exit, and so the next entry, changes
+    entry = starts.copy()
+    meet = starts.copy()
+    true_exit = exits.copy()
+    while True:
+        want = np.concatenate(([0], true_exit[:-1]))
+        lanes = np.flatnonzero(want != entry)
+        if not lanes.size:
+            break
+        entry[lanes] = want[lanes]
+        todo, p = np.arange(len(lanes)), entry[lanes]
+        while todo.size:
+            lane = lanes[todo]
+            inside = p < ends[lane]
+            hit = np.zeros(len(todo), dtype=bool)
+            hit[inside] = seen[p[inside]]
+            done = hit | ~inside
+            d = lane[done]
+            meet[d] = np.where(hit[done], p[done], ends[d])
+            true_exit[d] = np.where(hit[done], exits[d], p[done])
+            todo, p = todo[~done], advance(p[~done])
+
+    # 3) the boundaries: each segment's own walk from its meeting point on,
+    # and its re-walk from its entry up to the meeting point
+    own = np.flatnonzero(seen)
+    seen[own[own < meet[own // seg]]] = False
+    lanes = np.flatnonzero(entry < meet)
+    p = entry[lanes]
+    while lanes.size:
+        seen[p] = True
+        p = advance(p)
+        before = p < meet[lanes]
+        lanes, p = lanes[before], p[before]
+    pos = np.flatnonzero(seen)[:count]
+    if len(pos) < count:
+        raise ValueError(f"Huffman stream holds {len(pos)} codewords, {count} expected")
+    return lut_sym[_windows(words, pos, maxlen)]

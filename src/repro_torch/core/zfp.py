@@ -18,7 +18,9 @@ Pointwise guarantee |x - x~| <= eb via the conservative plane cutoff.
 
 from __future__ import annotations
 
+import os
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -102,6 +104,28 @@ def _prepare_blocks(x: np.ndarray, eb: float, transform: str):
     return q, e, step, padded, gain_n, T
 
 
+#: blocks `_emit_planes` and `_read_planes` code at a time, on threads of
+#: their own (a chunk's arrays stay in cache; numpy lets go of the GIL)
+EMIT_CHUNK = 1 << 15
+
+
+def _map_chunks(fn, n: int) -> list:
+    """`fn` over chunks 0..n-1, in order, on up to one thread a core."""
+    if n <= 1:
+        return [fn(i) for i in range(n)]
+    with ThreadPoolExecutor(min(n, os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, range(n)))
+
+
+def _bit_lengths(m: np.ndarray) -> np.ndarray:
+    """Bits of each magnitude in `m` (int64 >= 0; 0 for 0), as int8."""
+    n = np.frexp(m.astype(np.float64))[1].astype(np.int64)
+    if m.size and int(m.max()) >= 1 << 53:  # a float rounded up to 2^n
+        big = n > 0
+        n[big] -= (m[big] >> (n[big] - 1)) == 0
+    return n.astype(np.int8)
+
+
 def _emit_planes(m: np.ndarray, neg: np.ndarray, nsb: np.ndarray) -> list[np.ndarray]:
     """Plane-major, degree-ordered k-prefix significance coding.
 
@@ -109,80 +133,143 @@ def _emit_planes(m: np.ndarray, neg: np.ndarray, nsb: np.ndarray) -> list[np.nda
     k = 1 + rank of the last newly-significant remaining coefficient (0 if
     none); significance bits of the first k remaining coefficients only;
     signs of the newly significant. `m` must already be in degree order.
+
+    A coefficient is significant above plane p when its bit length exceeds
+    p + 1 and turns significant at p when its bit length is p + 1, so the
+    significance and sign bits come from bit lengths. The blocks are coded
+    `EMIT_CHUNK` at a time, each plane on its active blocks only, and each
+    plane's four sections are laid out over all blocks in block order.
     """
-    parts: list[np.ndarray] = []
     nblk, bsz = m.shape
     w = k_width(bsz)
     kshift = np.arange(w - 1, -1, -1, dtype=np.int64)
     maxp = int(nsb.max()) if nsb.size else 0
-    for p in range(maxp - 1, -1, -1):
-        active = nsb > p
-        if not active.any():
-            continue
-        act = active[:, None]
-        sig_prev = (m >> (p + 1)) > 0
-        bit_p = ((m >> p) & 1).astype(np.uint8)
-        # 1) refinement bits of already-significant coefficients
-        parts.append(bit_p[act & sig_prev])
-        # 2) k per active block with remaining coeffs (fixed width w)
-        rem = act & ~sig_prev
-        has_rem = rem.any(axis=1) & active
-        rank = np.cumsum(rem, axis=1) - 1
-        newly = rem & (bit_p == 1)
-        k = np.max(np.where(newly, rank + 1, 0), axis=1)
-        kb = ((k[has_rem, None] >> kshift[None, :]) & 1).astype(np.uint8)
-        parts.append(kb.reshape(-1))
-        # 3) significance bits of the first k remaining coefficients
-        test = rem & (rank < k[:, None])
-        parts.append(bit_p[test])
-        # 4) signs of newly-significant coefficients
-        parts.append(neg[newly].astype(np.uint8))
-    return parts
+
+    def chunk(i: int) -> dict[int, list[np.ndarray]]:
+        lo = i * EMIT_CHUNK
+        mc, negc, nsbc = m[lo : lo + EMIT_CHUNK], neg[lo : lo + EMIT_CHUNK], nsb[lo : lo + EMIT_CHUNK]
+        lens = _bit_lengths(mc)
+        planes = {}
+        for p in range(int(nsbc.max()) - 1, -1, -1):
+            active = nsbc > p
+            if not active.all():
+                blk = np.flatnonzero(active)
+                ma, na, la = mc[blk], negc[blk], lens[blk]
+            else:
+                ma, na, la = mc, negc, lens
+            # 1) refinement bits of already-significant coefficients
+            sig_prev = la > p + 1
+            ref = ((ma[sig_prev] >> p) & 1).astype(np.uint8)
+            # 2) k per active block with remaining coeffs (fixed width w)
+            rem = ~sig_prev
+            has_rem = rem.any(axis=1)
+            rank = np.cumsum(rem, axis=1, dtype=np.int8) - 1
+            newly = la == p + 1
+            k = np.max(np.where(newly, rank + 1, 0), axis=1).astype(np.int64)
+            kb = ((k[has_rem, None] >> kshift[None, :]) & 1).astype(np.uint8).reshape(-1)
+            # 3) significance bits of the first k remaining coefficients
+            test = rem & (rank < k[:, None])
+            # 4) signs of newly-significant coefficients
+            planes[p] = [ref, kb, newly[test].astype(np.uint8), na[newly].astype(np.uint8)]
+        return planes
+
+    chunks = _map_chunks(chunk, -(-nblk // EMIT_CHUNK))
+    return [np.concatenate([c[p][i] for c in chunks if p in c] or [np.zeros(0, np.uint8)])
+            for p in range(maxp - 1, -1, -1) for i in range(4)]
 
 
 def _read_planes(bits: np.ndarray, pos: int, nblk: int, bsz: int, nsb: np.ndarray):
+    """Invert `_emit_planes`: (m, neg, the bit offset after the planes).
+
+    A plane's four sections each span all blocks, so the blocks are read
+    `EMIT_CHUNK` at a time in four rounds a plane: each round's bit counts
+    are known from the state (refinement bits, k fields) or from the round
+    before (tested bits from k, signs from the tested bits), and their
+    offsets place each chunk's slice of the section."""
     m = np.zeros((nblk, bsz), dtype=np.int64)
     neg = np.zeros((nblk, bsz), dtype=bool)
     w = k_width(bsz)
     kweights = (1 << np.arange(w - 1, -1, -1)).astype(np.int64)
     maxp = int(nsb.max()) if nsb.size else 0
+    n = -(-nblk // EMIT_CHUNK)
+    state: list = [None] * n
+
+    def offsets(counts: list) -> list:
+        nonlocal pos
+        at = pos + np.concatenate(([0], np.cumsum(counts)[:-1])).astype(np.int64)
+        pos += int(sum(counts))
+        return [int(v) for v in at]
+
     for p in range(maxp - 1, -1, -1):
-        active = nsb > p
-        if not active.any():
-            continue
-        act = active[:, None]
-        sig_prev = m > 0  # m currently holds bits above plane p
-        m[active] <<= 1
-        # 1) refinement
-        ref_mask = act & sig_prev
-        nref = int(ref_mask.sum())
-        if nref:
-            m[ref_mask] |= bits[pos : pos + nref]
-        pos += nref
-        # 2) k values
-        rem = act & ~sig_prev
-        has_rem = rem.any(axis=1) & active
-        ngrp = int(has_rem.sum())
-        k = np.zeros(nblk, dtype=np.int64)
-        if ngrp:
-            kb = bits[pos : pos + ngrp * w].reshape(ngrp, w)
-            k[has_rem] = kb @ kweights
-        pos += ngrp * w
+        def open_plane(i: int) -> tuple[int, int]:
+            lo = i * EMIT_CHUNK
+            mc, negc = m[lo : lo + EMIT_CHUNK], neg[lo : lo + EMIT_CHUNK]
+            active = nsb[lo : lo + EMIT_CHUNK] > p
+            if not active.any():
+                state[i] = None
+                return 0, 0
+            blk = None if active.all() else np.flatnonzero(active)
+            ma = mc if blk is None else mc[blk]
+            sig_prev = ma > 0  # m currently holds bits above plane p
+            ma <<= 1
+            rem = ~sig_prev
+            has_rem = rem.any(axis=1)
+            state[i] = [mc, negc, blk, ma, sig_prev, rem, has_rem]
+            return int(sig_prev.sum()), int(has_rem.sum()) * w
+
+        counts = _map_chunks(open_plane, n)
+        ref_at = offsets([c[0] for c in counts])
+        k_at = offsets([c[1] for c in counts])
+
+        # 1) refinement, 2) k values, and the tested coefficients
+        def read_k(i: int) -> int:
+            if state[i] is None:
+                return 0
+            _, _, _, ma, sig_prev, rem, has_rem = state[i]
+            nref, nk = counts[i]
+            if nref:
+                ma[sig_prev] |= bits[ref_at[i] : ref_at[i] + nref]
+            k = np.zeros(len(ma), dtype=np.int64)
+            if nk:
+                k[has_rem] = bits[k_at[i] : k_at[i] + nk].reshape(-1, w) @ kweights
+            rank = np.cumsum(rem, axis=1, dtype=np.int8) - 1
+            test = rem & (rank < k[:, None])
+            state[i].append(test)
+            return int(test.sum())
+
+        ntest = _map_chunks(read_k, n)
+        test_at = offsets(ntest)
+
         # 3) significance bits of the first k remaining coefficients
-        rank = np.cumsum(rem, axis=1) - 1
-        test = rem & (rank < k[:, None])
-        nbm = int(test.sum())
-        newly = np.zeros_like(rem)
-        if nbm:
-            bmb = bits[pos : pos + nbm]
-            m[test] |= bmb
-            newly[test] = bmb.astype(bool)
-        pos += nbm
+        def read_significance(i: int) -> int:
+            if state[i] is None:
+                return 0
+            ma, rem, test = state[i][3], state[i][5], state[i][7]
+            newly = np.zeros_like(rem)
+            if ntest[i]:
+                bmb = bits[test_at[i] : test_at[i] + ntest[i]]
+                ma[test] |= bmb
+                newly[test] = bmb.astype(bool)
+            state[i].append(newly)
+            return int(newly.sum())
+
+        nnew = _map_chunks(read_significance, n)
+        sign_at = offsets(nnew)
+
         # 4) signs
-        nnew = int(newly.sum())
-        if nnew:
-            neg[newly] = bits[pos : pos + nnew].astype(bool)
-        pos += nnew
+        def read_signs(i: int) -> None:
+            if state[i] is None:
+                return
+            mc, negc, blk, ma = state[i][:4]
+            newly = state[i][8]
+            na = negc if blk is None else negc[blk]
+            if nnew[i]:
+                na[newly] = bits[sign_at[i] : sign_at[i] + nnew[i]].astype(bool)
+            if blk is not None:
+                mc[blk] = ma
+                negc[blk] = na
+
+        _map_chunks(read_signs, n)
     return m, neg, pos
 
 
@@ -264,7 +351,7 @@ def zfp_decompress(buf: bytes) -> np.ndarray:
     off += nblk
     (nbits,) = struct.unpack_from("<Q", buf, off)
     off += 8
-    bits = np.unpackbits(np.frombuffer(buf[off:], dtype=np.uint8))[:nbits].astype(np.int64)
+    bits = np.unpackbits(np.frombuffer(buf[off:], dtype=np.uint8))[:nbits]
     bsz = 4**n
     m, neg, _ = _read_planes(bits, 0, nblk, bsz, nsb.astype(np.int64))
     inv = np.argsort(degree_order(n))  # undo the degree-ordered layout

@@ -186,8 +186,9 @@ def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULE
     timed between synchronizes.
 
     With `mesh`, everything runs under `sharding.activate(mesh, rules)`:
-    `params` must be laid out on it (`sharding.place_params`); the prompts
-    are laid out by `batch_shardings` and the cache by `cache_sharding`, and the
+    `params` must be laid out on it (`sharding.place_params`); the prompts,
+    patch embeddings and frames are laid out by `batch_shardings` and the
+    cache by `cache_sharding`, and the
     tokens are gathered to every rank at the end. `teacher` (B, n) feeds
     decode step i < n the token `teacher[:, i]` instead of the previous
     step's (the greedy tokens are still returned). `keep` adds the
@@ -197,25 +198,26 @@ def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULE
 
     rng = np.random.default_rng(0)
     b = args.batch
-    lay = None if mesh is None else batch_shardings(
-        {"tokens": torch.empty(b, args.prompt_len, device="meta")}, mesh, b)["tokens"]
 
-    def place(tokens) -> torch.Tensor:
-        t = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
-        return t if lay is None else dist.put_global(t, lay)
+    def place(values, dtype=torch.int32) -> torch.Tensor:
+        """A batch leaf on the device; under a mesh laid out by
+        `batch_shardings` (its leading batch dim over the data dims)."""
+        t = torch.as_tensor(values, dtype=dtype, device=dev)
+        return t if mesh is None else dist.put_global(t, batch_shardings({"t": t}, mesh, b)["t"])
 
     prompts = place(rng.integers(1, cfg.vocab, (b, args.prompt_len)))
     forced = [] if teacher is None else [place(teacher[:, i:i + 1]) for i in range(teacher.shape[1])]
-    max_len = args.prompt_len + args.gen
+    # the vision stub's patch embeddings take cache rows before the prompt
+    # (the reference sizes its cache without them, and its prefill fails)
+    patches = cfg.frontend_len if cfg.frontend == "vision" else 0
+    max_len = patches + args.prompt_len + args.gen
     batch = {"tokens": prompts}
     if cfg.frontend == "vision":
-        batch["patch_embeds"] = torch.as_tensor(
-            rng.standard_normal((b, cfg.frontend_len, cfg.d_model)), dtype=torch.float32,
-            device=dev)
+        batch["patch_embeds"] = place(rng.standard_normal((b, cfg.frontend_len, cfg.d_model)),
+                                      torch.float32)
     if cfg.encdec:  # the audio stub's frame embeddings, encoded once by the prefill
-        batch["frames"] = torch.as_tensor(
-            rng.standard_normal((b, cfg.frontend_len, cfg.d_model)), dtype=torch.float32,
-            device=dev)
+        batch["frames"] = place(rng.standard_normal((b, cfg.frontend_len, cfg.d_model)),
+                                torch.float32)
 
     prefill = make_prefill_step(model)
     step = make_decode_step(model, sample=args.sample)

@@ -146,14 +146,15 @@ def run(args, cfg, model, params, *, mesh=None, rules=sharding.TRAIN_RULES) -> d
             opt_state["adam"] = restored["opt"]
             print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
-    lay = None
-    if mesh is not None:
-        shapes = {k: torch.empty(args.batch, args.seq, device="meta") for k in ("tokens", "labels")}
-        lay = batch_shardings(shapes, mesh, args.batch)
-
     def place(batch: dict) -> dict:
+        """A batch's leaves on the device; under a mesh each laid out by
+        `batch_shardings` (tokens, labels, and any frames or patch
+        embeddings alike)."""
         out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        return out if lay is None else {k: dist.put_global(v, lay[k]) for k, v in out.items()}
+        if mesh is None:
+            return out
+        lay = batch_shardings(out, mesh, args.batch)
+        return {k: dist.put_global(v, lay[k]) for k, v in out.items()}
 
     step_fn = make_train_step(model, opt_cfg, gc_cfg)
     losses, step_s = [], []

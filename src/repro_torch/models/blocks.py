@@ -98,7 +98,8 @@ def apply_attn(
         # --- paged KV pool (serving tier, DESIGN.md §9) ---
         if nn.is_sharded(q):
             raise NotImplementedError(
-                "the paged KV pool under a mesh: ROADMAP.md queue A, item 14e")
+                "the paged KV pool under a mesh: the reference never runs it under a mesh "
+                "(its run_continuous returns before it makes one)")
         if l != 1:
             raise ValueError(
                 "paged KV cache is decode-only (L == 1); prefill runs "
@@ -276,7 +277,7 @@ def apply_mla(
     kv = nn.split_heads(kv, h, m.qk_nope + m.v_head)
     k_nope, v = nn.split_last(kv, m.qk_nope, m.v_head)
     k = _with_rope_key(k_nope, k_rope)
-    qq = _cat_last(q_nope, q_rope)
+    qq = nn.cat([q_nope, q_rope], -1)
     qq = shard(qq, "batch", None, "heads", None)
     k = shard(k, "batch", None, "heads", None)
     v = shard(v, "batch", None, "heads", None)
@@ -352,14 +353,6 @@ def _with_rope_key(k_nope, k_rope):
         Partial() if pk == Shard(2) else pr for pk, pr in zip(k_nope.placements, k_rope.placements)))
     local = torch.cat([kn, kr.expand(*kn.shape[:3], kr.shape[-1])], dim=-1)
     return nn._like(local, k_nope, tuple(k_nope.shape[:3]) + (k_nope.shape[3] + k_rope.shape[3],))
-
-
-def _cat_last(a, b):
-    """[a, b] along the last dim; DTensors of one layout shard by shard."""
-    if not nn.is_sharded(a):
-        return torch.cat([a, b], dim=-1)
-    return nn._like(torch.cat([a.to_local(), b.to_local()], dim=-1), a,
-                    tuple(a.shape[:-1]) + (a.shape[-1] + b.shape[-1],))
 
 
 def mla_cache_desc(cfg: ModelConfig, batch: int, max_len: int,

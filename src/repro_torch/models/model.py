@@ -26,12 +26,11 @@ tensors (K/V rows, recurrent states) are updated in place by `forward`:
 the returned cache holds the same tensors with the new values written,
 and a new position clock.
 
-Under a mesh (`runtime.sharding.activate`), the decoder-only LMs
-(`TransformerLM` with dense, MoE or MLA blocks, and its `dense_blocks`
-stack; not with a frontend) take params, tokens, labels and caches as
-DTensors: `init_cache` lays the cache out by
-`runtime.sharding.cache_sharding`, and `loss` is taken on the logits'
-batch and vocab shards (`_sharded_loss`). The other families raise there.
+Under a mesh (`runtime.sharding.activate`) every family takes params,
+tokens, labels, patch embeddings, frames and caches as DTensors:
+`init_cache` lays the cache out by `runtime.sharding.cache_sharding`
+(recurrent states and the encoder memory included), and `loss` is taken on
+the logits' batch and vocab shards (`_sharded_loss`).
 """
 
 from __future__ import annotations
@@ -115,17 +114,7 @@ class BaseLM:
         self.cfg = cfg
         self.device = _device.resolve(device)
 
-    def _mesh_ready(self) -> bool:
-        """Whether this model runs under a mesh (the decoder-only LMs
-        without a frontend)."""
-        return False
-
     def _check_mesh(self) -> None:
-        if not self._mesh_ready():
-            raise NotImplementedError(
-                f"{self.cfg.name} ({type(self).__name__}, moe={bool(self.cfg.moe)}, "
-                f"mla={bool(self.cfg.mla)}, frontend={self.cfg.frontend}) under a mesh: "
-                "ROADMAP.md queue A, item 14e")
         if nn.shard_fn() is None:
             raise RuntimeError("sharded params run under runtime.sharding.activate(mesh, rules)")
 
@@ -153,7 +142,7 @@ class BaseLM:
         x = nn.reduce_partial(nn.embed(params["embed"], batch["tokens"])).to(_dt(cfg))
         if cfg.frontend == "vision" and "patch_embeds" in batch:
             pe = dense(batch["patch_embeds"].to(_dt(cfg)), params["patch_proj"])
-            x = torch.cat([pe, x], dim=1)
+            x = nn.cat([pe, x], 1)
         return shard(x, "batch", None, None)
 
     def _logits(self, params, x) -> torch.Tensor:
@@ -169,7 +158,9 @@ class BaseLM:
         labels = batch["labels"]
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
             # logits cover [patches, tokens]; labels only the token part
-            logits = logits[:, -labels.shape[1]:]
+            n = labels.shape[1]
+            logits = nn.on_shards(lambda t: t[:, -n:], logits,
+                                  (logits.shape[0], n, logits.shape[2]))
         if nn.is_sharded(logits):
             return _sharded_loss(logits, labels)
         mask = (labels >= 0).to(torch.float32)
@@ -221,9 +212,6 @@ class TransformerLM(BaseLM):
     def _n_dense(self) -> int:
         return self.cfg.moe.n_dense_layers if self.cfg.moe else 0
 
-    def _mesh_ready(self) -> bool:
-        return not self.cfg.frontend
-
     def desc(self):
         cfg = self.cfg
         nd = self._n_dense()
@@ -263,21 +251,14 @@ class TransformerLM(BaseLM):
         paged = cache is not None and "page_table" in cache
         positions = pos0[:, None] + steps[None, :] if paged else pos0 + steps[None, :]
 
-        def layer_cache(stack, i):
-            if cache is None:
-                return None
-            cl = dict(nn.layer(cache[stack], i), len=pos0)
-            if paged:
-                cl["ptab"] = cache["page_table"]
-            return cl
+        extra = {"ptab": cache["page_table"]} if paged else {}
 
         def run_layer(stack, i, p, x, window=None):
-            cl = layer_cache(stack, i)
-            x, _ = self._block(p, x, positions, cl, window=window)
-            if cl is not None:
-                # a split layer stack's gathered copy goes back to its ranks
-                nn.put_layer(cache[stack], i, {k: cl[k] for k in cache[stack]})
-            return x
+            def block(c):
+                cl = None if c is None else dict(c, len=pos0, **extra)
+                return self._block(p, x, positions, cl, window=window)[0]
+
+            return _with_layer_cache(block, None if cache is None else cache[stack], i)
 
         nd = self._n_dense()
         # the leading dense layers run first and are not checkpointed, as
@@ -369,12 +350,12 @@ class XLSTMLM(BaseLM):
     def _group(self, gp, x, gc=None):
         cfg = self.cfg
         xc = cfg.xlstm
-        for i, p in enumerate(nn.unstack(gp["m"], xc.m_per_group)):
-            y, _ = xlstm.apply_mlstm(p, x, cfg, cache=None if gc is None else nn.layer(gc["m"], i))
-            x = x + y
-        for i, p in enumerate(nn.unstack(gp["s"], xc.s_per_group)):
-            y, _ = xlstm.apply_slstm(p, x, cfg, cache=None if gc is None else nn.layer(gc["s"], i))
-            x = x + y
+        for kind, n, apply in (("m", xc.m_per_group, xlstm.apply_mlstm),
+                               ("s", xc.s_per_group, xlstm.apply_slstm)):
+            for i, p in enumerate(nn.unstack(gp[kind], n)):
+                y, _ = _with_layer_cache(lambda c: apply(p, x, cfg, cache=c),
+                                         None if gc is None else gc[kind], i)
+                x = x + y
         return x
 
     def forward(self, params, batch, cache=None):
@@ -387,7 +368,8 @@ class XLSTMLM(BaseLM):
             if remat:
                 x = checkpoint(self._group, gp, x, use_reentrant=False)
             else:
-                x = self._group(gp, x, None if cache is None else nn.layer(cache["groups"], i))
+                x = _with_layer_cache(lambda c: self._group(gp, x, c),
+                                      None if cache is None else cache["groups"], i)
         new_cache = None
         if cache is not None:
             # the blocks wrote their states into the cache stacks in place
@@ -396,8 +378,10 @@ class XLSTMLM(BaseLM):
 
     def init_cache(self, batch: int, max_len: int):
         cache = super().init_cache(batch, max_len)
-        # the mLSTM stabilizer starts at -1e30, as the chunked path's
-        cache["groups"]["m"]["m"].fill_(xlstm.M_INIT)
+        # the mLSTM stabilizer starts at -1e30, as the chunked path's (each
+        # rank fills its shard)
+        m = cache["groups"]["m"]["m"]
+        (m.to_local() if nn.is_sharded(m) else m).fill_(xlstm.M_INIT)
         return cache
 
     def cache_desc(self, batch: int, max_len: int):
@@ -452,7 +436,7 @@ class HybridLM(BaseLM):
             if remat:
                 x = checkpoint(self._mamba, p, x, use_reentrant=False)
             else:
-                x = self._mamba(p, x, None if caches is None else nn.layer(caches, i))
+                x = _with_layer_cache(lambda c: self._mamba(p, x, c), caches, i)
         return x
 
     def forward(self, params, batch, cache=None):
@@ -461,23 +445,26 @@ class HybridLM(BaseLM):
         x = self._embed(params, batch)
         emb0 = x
         l = x.shape[1]
-        pos0 = cache["pos"] if cache is not None else 0
+        clock = cache["pos"] if cache is not None else 0
+        pos0 = nn.local_value(clock)  # a replicated clock's value on every rank
         positions = pos0 + torch.arange(l, device=x.device)[None, :]
         for gi, gp in enumerate(nn.unstack(params["mamba_groups"], n_groups)):
-            gc = None if cache is None else nn.layer(cache["mamba_groups"], gi)
-            x = self._mamba_stack(gp, k, x, gc)
+            x = _with_layer_cache(lambda c: self._mamba_stack(gp, k, x, c),
+                                  None if cache is None else cache["mamba_groups"], gi)
             # shared attention block on [x ; emb0]
-            fused = dense(torch.cat([x, emb0], dim=-1), params["fuse"])
-            ac = None if cache is None else dict(nn.layer(cache["attn"], gi), len=pos0)
-            a, _ = blocks.apply_attn(params["shared_attn"], fused, positions, cfg,
-                                     cache=ac, window=cfg.attn_window)
+            fused = dense(nn.cat([x, emb0], -1), params["fuse"])
+            a, _ = _with_layer_cache(
+                lambda c: blocks.apply_attn(params["shared_attn"], fused, positions, cfg,
+                                            cache=None if c is None else dict(c, len=pos0),
+                                            window=cfg.attn_window),
+                None if cache is None else cache["attn"], gi)
             x = x + a
             x = x + blocks.apply_mlp(params["shared_mlp"], x, cfg)
         if tail:
             x = self._mamba_stack(params["mamba_tail"], tail, x,
                                   None if cache is None else cache["mamba_tail"])
         # the blocks wrote their states and K/V rows into the cache in place
-        new_cache = None if cache is None else dict(cache, pos=pos0 + l)
+        new_cache = None if cache is None else dict(cache, pos=clock + l)
         return self._logits(params, x), new_cache
 
     def cache_desc(self, batch: int, max_len: int):
@@ -561,20 +548,23 @@ class EncDecLM(BaseLM):
             raise ValueError(f"{cfg.name}: a forward without a cache needs 'frames'")
         x = self._embed(params, batch)
         l = x.shape[1]
-        pos0 = cache["pos"] if cache is not None else 0
+        clock = cache["pos"] if cache is not None else 0
+        pos0 = nn.local_value(clock)  # a replicated clock's value on every rank
         positions = pos0 + torch.arange(l, device=x.device)[None, :]
         for i, p in enumerate(nn.unstack(params["dec_blocks"], cfg.n_layers)):
             if remat:
                 x = checkpoint(self._dec_block, p, x, positions, memory, use_reentrant=False)
             else:
-                cl = None if cache is None else dict(nn.layer(cache["blocks"], i), len=pos0)
-                x = self._dec_block(p, x, positions, memory, cl)
+                x = _with_layer_cache(
+                    lambda c: self._dec_block(p, x, positions, memory,
+                                              None if c is None else dict(c, len=pos0)),
+                    None if cache is None else cache["blocks"], i)
         new_cache = None
         if cache is not None:
             # the layers wrote their K/V rows into the cache stacks in place
-            new_cache = dict(cache, pos=pos0 + l)
+            new_cache = dict(cache, pos=clock + l)
             if "frames" in batch:  # frames of `cache_desc`'s enc_len steps
-                cache["memory"].copy_(memory)
+                nn.write_state(cache["memory"], memory)
         return self._logits(params, x), new_cache
 
     def cache_desc(self, batch: int, max_len: int, enc_len: int | None = None):
@@ -585,6 +575,20 @@ class EncDecLM(BaseLM):
             "memory": TensorSpec((batch, enc_len, cfg.d_model), _dt(cfg)),
             "blocks": _stack_specs(blocks.attn_cache_desc(cfg, batch, max_len), cfg.n_layers),
         }
+
+
+def _with_layer_cache(fn, stack: dict | None, i: int):
+    """`fn(layer i of the cache stack)` (`fn(None)` without a cache), whose
+    blocks write their states into that layer in place; where a mesh
+    splits the stack (a stack as long as the batch, `cache_sharding`), the
+    gathered layer is written back to the ranks that hold it
+    (`nn.put_layer`)."""
+    if stack is None:
+        return fn(None)
+    cl = nn.layer(stack, i)
+    out = fn(cl)
+    nn.put_layer(stack, i, cl)
+    return out
 
 
 def build_model(cfg: ModelConfig, device=None) -> BaseLM:

@@ -18,7 +18,10 @@ autograd plans no collective of DTensor's own. A product whose
 contraction is split adds its partials in float32 over the mesh and
 rounds once to the compute dtype; a weight split along a dim the product
 cannot use (FSDP's 'embed' over 'data') is gathered first, its gradient
-coming back as a reduce-scatter (`runtime.sharding._GatherSplit`).
+coming back as a reduce-scatter (`runtime.sharding._GatherSplit`). A norm
+over a split last dim adds its rows' float32 sums of squares over the
+split; the depthwise conv runs on each rank's channels; a fused output
+cut where a mesh dim splits it (`split_last`) is gathered first.
 
 Numerics follow the reference: activations in the compute dtype of `x`
 (bfloat16 by default), every weight cast to it at each call (`dense`),
@@ -286,16 +289,99 @@ def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> No
     cache.to_local().index_copy_(1, rows, new.to_local())
 
 
+def write_state(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache.copy_(new)`` in place (a recurrent state, a conv window, the
+    encoder memory). A DTensor cache takes `new` in its own layout (a
+    split of `new` the cache does not have is gathered) and each rank
+    writes its shard."""
+    if not is_sharded(cache):
+        cache.copy_(new)
+        return
+    from ..runtime import sharding as _sh
+
+    cache.to_local().copy_(_sh.redistribute(new.detach(), tuple(cache.placements)).to_local())
+
+
+def local_part(t, split: set) -> torch.Tensor:
+    """DTensor `t`'s local tensor, for a computation whose work each rank of
+    the mesh dims `split` does a different part of (its rows, its heads):
+    where `t` is whole over such a dim, each rank's use of it gives part of
+    its gradient, declared a pending sum there."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return t.to_local(grad_placements=tuple(
+        Partial() if j in split and isinstance(p, Replicate) else p
+        for j, p in enumerate(t.placements)))
+
+
+def split_mesh_dims(x) -> set:
+    """The mesh dims that split some dim of DTensor `x`."""
+    from torch.distributed.tensor import Shard
+
+    return {j for j, p in enumerate(x.placements) if isinstance(p, Shard)}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last dim, statistics in float32. A DTensor whose
+    last dim is split (`_rms_norm_split`) adds its rows' sums of squares
+    over the split."""
+    if is_sharded(x) and _split_dims(x, x.ndim - 1):
+        return _rms_norm_split(x, scale, eps)
     dt = x.dtype
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(dt)
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a local tensor over the ranks of mesh dims `dims` (an
+    all-reduce each), which every rank then reads in its own way: the
+    backward sums the ranks' gradients the same way. (DTensor's own
+    backward of a pending sum leaves such a gradient pending in torch
+    releases before the one that made it add it up.)"""
+
+    @staticmethod
+    def forward(ctx, local, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return _sum_over(local, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.mesh, ctx.dims), None, None
+
+
+def _sum_over(local: torch.Tensor, mesh, dims) -> torch.Tensor:
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..runtime import sharding as _sh
+
+    pend = tuple(Partial() if j in dims else Replicate() for j in range(mesh.ndim))
+    whole = _sh.from_local(local.contiguous(), _sh.NamedSharding(mesh, pend), local.shape)
+    return reduce_partial(whole).to_local()
+
+
+def _rms_norm_split(x, scale, eps: float):
+    """`rms_norm` of DTensor `x` whose last dim is split: each rank squares
+    and sums its columns in float32, the sums are added over the split
+    (`_SumOver`), and each rank scales its columns by its box of `scale`.
+    The result differs from the whole row's only by the order of its
+    float32 additions."""
+    dims = tuple(_split_dims(x, x.ndim - 1))
+    xl = x.to_local()
+    xf = xl.to(torch.float32)
+    ss = _SumOver.apply(torch.sum(torch.square(xf), dim=-1, keepdim=True), x.device_mesh, dims)
+    start, stop = _box(x)
+    sc = scale.to(torch.float32)
+    if is_sharded(scale):
+        sc = local_part(scale, split_mesh_dims(x)).to(torch.float32)
+    sc = sc[start[-1]:stop[-1]]
+    out = xf * torch.rsqrt(ss / x.shape[-1] + eps) * sc
+    return _like(out.to(x.dtype), x, x.shape)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -457,14 +543,35 @@ def split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
 
 def split_last(x: torch.Tensor, *sizes: int) -> tuple:
     """`x` cut along its last dim into consecutive parts of `sizes`. A
-    DTensor, whose last dim no mesh dim may split, is cut shard by shard,
-    each part laid out as `x`."""
+    DTensor is cut shard by shard, each part laid out as `x`; where a mesh
+    dim splits the last dim (a fused projection's columns, whose split
+    need not fall on the parts' boundaries), `x` is gathered along it
+    first (`runtime.sharding.redistribute`, which carries the gradient)."""
     if not is_sharded(x):
         return tuple(torch.split(x, sizes, dim=-1))
-    if _split_dims(x, x.ndim - 1):
-        raise ValueError(f"split_last cuts an unsplit last dim, got {x.placements}")
+    split = _split_dims(x, x.ndim - 1)
+    if split:
+        from torch.distributed.tensor import Replicate
+
+        from ..runtime import sharding as _sh
+
+        x = _sh.redistribute(x, tuple(Replicate() if j in split else p
+                                      for j, p in enumerate(x.placements)))
     return tuple(_like(t.contiguous(), x, tuple(x.shape[:-1]) + (n,))
                  for t, n in zip(torch.split(x.to_local(), sizes, dim=-1), sizes))
+
+
+def cat(xs, dim: int) -> torch.Tensor:
+    """``torch.cat(xs, dim)``; DTensors of one layout, none of them split
+    along `dim`, shard by shard."""
+    if not is_sharded(xs[0]):
+        return torch.cat(xs, dim=dim)
+    d = dim % xs[0].ndim
+    if _split_dims(xs[0], d) or any(tuple(t.placements) != tuple(xs[0].placements) for t in xs):
+        raise ValueError(f"cat along dim {d} of {[tuple(t.placements) for t in xs]}")
+    shape = list(xs[0].shape)
+    shape[d] = sum(int(t.shape[d]) for t in xs)
+    return _like(torch.cat([t.to_local() for t in xs], dim=d), xs[0], tuple(shape))
 
 
 def on_shards(fn: Callable, x: torch.Tensor, shape) -> torch.Tensor:
@@ -598,7 +705,8 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
 
     if _is_vector(q_offset) or _is_vector(kv_len):
         raise NotImplementedError(
-            "per-slot clocks (the paged KV pool) under a mesh: ROADMAP.md queue A, item 14e")
+            "per-slot clocks (the paged KV pool) under a mesh: the reference never runs the "
+            "paged pool under a mesh (its run_continuous returns before it makes one)")
     mesh = q.device_mesh
     if not all(p == Shard(0) or p == Shard(2) or isinstance(p, Replicate) for p in q.placements):
         raise ValueError(f"attention splits queries by batch and heads only, got {q.placements}")
@@ -635,7 +743,11 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     b (C,), in the dtype of x, then silu in float32 (the Mamba2 and mLSTM
     input convs). The K-1 steps before x are `prev` (B, K-1, C), a decode
     cache, or zeros. Returns (out, the last K-1 input steps: the next
-    call's `prev`)."""
+    call's `prev`).
+
+    DTensors run on each rank's rows and channels (`_causal_conv_sharded`)."""
+    if is_sharded(x):
+        return _causal_conv_sharded(x, w, b, prev)
     k, l = w.shape[0], x.shape[1]
     if prev is not None:
         ext = torch.cat([prev.to(x.dtype), x], dim=1)
@@ -644,6 +756,30 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     wins = torch.stack([ext[:, i:i + l, :] for i in range(k)], dim=2)  # (B, L, K, C)
     out = torch.einsum("blkc,kc->blc", wins, w.to(x.dtype)) + b.to(x.dtype)
     return torch.nn.functional.silu(out.to(torch.float32)).to(x.dtype), ext[:, -(k - 1):, :]
+
+
+def _causal_conv_sharded(x, w, b, prev):
+    """`causal_conv` of DTensor x (B, L, C), split by batch and possibly by
+    channels: the kernel and bias are laid out with x's channel split (a
+    split x does not have is gathered), the window `prev` (a cache) with
+    x's layout, and each rank convolves its own rows and channels. The
+    kernel's and bias's gradients are pending sums over the mesh dims that
+    split only x (its rows); the returned window is laid out as x."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..runtime import sharding as _sh
+
+    chan = _split_dims(x, 2)
+    wl = _sh.redistribute(w, tuple(Shard(1) if j in chan else Replicate()
+                                   for j in range(x.device_mesh.ndim)))
+    bl = _sh.redistribute(b, tuple(Shard(0) if j in chan else Replicate()
+                                   for j in range(x.device_mesh.ndim)))
+    rows = split_mesh_dims(x) - set(chan)
+    if prev is not None:
+        prev = _sh.redistribute(prev.detach(), tuple(x.placements)).to_local()
+    out, window = causal_conv(x.to_local(), local_part(wl, rows), local_part(bl, rows), prev)
+    return _like(out, x, x.shape), _like(window.contiguous(), x,
+                                         (x.shape[0], w.shape[0] - 1, x.shape[2]))
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import nn
 from .config import ModelConfig, SSMCfg
 from .nn import P, TensorSpec, causal_conv, dense, rms_norm, shard
 
@@ -121,32 +122,70 @@ def apply_mamba(
     updated in place. A one-token call WITH a cache takes the recurrent
     update; any other call the chunked form, its length zero-padded to a
     multiple of the chunk (dt = 0 there: the padded steps neither decay
-    nor feed the state)."""
+    nor feed the state).
+
+    Under a mesh x is split by batch and `in_proj` by its columns over
+    'model', at a boundary that falls inside one of the fused parts
+    z | x | B | C | dt. The fused output is gathered along its columns
+    (`nn.split_last`; each part's gradient, a pending sum over the heads'
+    split, is added up where it meets the gather), so the parts, the conv
+    window (its kernel gathered, `nn.causal_conv`) and B, C are whole on
+    every rank; x is then split over heads as the
+    reference's `shard(xi, "batch", None, "heads", None)` asks, and each
+    rank scans its own heads (`_mamba_heads`). The state `h` is written in
+    the cache's layout (gathered over the heads where `cache_sharding`
+    keeps it whole), the gated output goes through the split `out_norm`
+    and the row-parallel `out_proj`."""
     s: SSMCfg = cfg.ssm
     b, l, d = x.shape
-    dtype = x.dtype
     d_in = s.expand * d
     nh = d_in // s.head_dim
     g, n = s.n_groups, s.state
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     zxbcdt = dense(xn, p["in_proj"])
-    z, xi, BC, dt_raw = torch.split(zxbcdt, [d_in, d_in, 2 * g * n, nh], dim=-1)
-    conv_in = torch.cat([xi, BC], dim=-1)  # (b, l, conv_dim)
+    z, xi, BC, dt_raw = nn.split_last(zxbcdt, d_in, d_in, 2 * g * n, nh)
+    conv_in = nn.cat([xi, BC], -1)  # (b, l, conv_dim)
     conv_out, new_conv = causal_conv(conv_in, p["conv_w"], p["conv_b"],
                                      None if cache is None else cache["conv"])
-    xi, Bm, Cm = torch.split(conv_out, [d_in, g * n, g * n], dim=-1)
-    xi = xi.reshape(b, l, nh, s.head_dim)
+    xi, Bm, Cm = nn.split_last(conv_out, d_in, g * n, g * n)
+    xi = nn.on_shards(lambda t: t.reshape(t.shape[0], l, nh, s.head_dim), xi,
+                      (b, l, nh, s.head_dim))
     xi = shard(xi, "batch", None, "heads", None)
-    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    h0 = cache["h"].to(dtype) if cache is not None else None
-    if l == 1 and cache is not None:
+    h0 = None if cache is None else cache["h"]
+    if nn.is_sharded(xi):
+        y, h_final = _mamba_heads_sharded(p, xi, z, Bm, Cm, dt_raw, h0, s)
+    else:
+        y, h_final = _mamba_heads(xi, z, Bm, Cm, dt_raw, p["A_log"], p["D"], p["dt_bias"],
+                                  None if h0 is None else h0.to(x.dtype), s,
+                                  decode=cache is not None)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = dense(y, p["out_proj"])
+    new_cache = None
+    if cache is not None:
+        nn.write_state(cache["h"], h_final)
+        nn.write_state(cache["conv"], new_conv)
+        new_cache = {"h": cache["h"], "conv": cache["conv"]}
+    return out, new_cache
+
+
+def _mamba_heads(xi, z, Bm, Cm, dt_raw, A_log, D, dt_bias, h0, s: SSMCfg, decode: bool):
+    """The scan of `apply_mamba` on plain tensors, for the heads that `xi`
+    (B, L, h, P), `dt_raw` (B, L, h), `A_log`, `D`, `dt_bias` (h,), `h0`
+    (B, h, N, P, in the compute dtype, or None) and the gate `z`
+    (B, L, h * P) hold; B and C (B, L, N) are shared by every head. A
+    one-token call with a state takes the recurrent update (`decode`).
+    Returns (the gated output (B, L, h * P), the final state)."""
+    b, l, h, hp = xi.shape
+    dtype = xi.dtype
+    dt = _softplus(dt_raw.to(torch.float32) + dt_bias.to(torch.float32))
+    A = -torch.exp(A_log.to(torch.float32))
+    if l == 1 and decode:
         # recurrent decode: h = exp(dt A) h + dt B (x) x ; y = C h + D x
-        a = torch.exp(dt[:, 0] * A)  # (b, nh)
+        a = torch.exp(dt[:, 0] * A)  # (b, h)
         bx = torch.einsum("bn,bhp->bhnp", Bm[:, 0], xi[:, 0] * dt[:, 0, :, None].to(dtype))
         hn = h0 * a[..., None, None].to(dtype) + bx.to(dtype)
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], hn)[:, None]
-        y = y.reshape(b, 1, nh, s.head_dim)
+        y = y.reshape(b, 1, h, hp)
         h_final = hn
     else:
         pad = (-l) % s.chunk
@@ -158,17 +197,42 @@ def apply_mamba(
         y, h_final = ssd_chunked(xi, dt, A, Bm, Cm, s.chunk, h0)
         y = y[:, :l]
         xi = xi[:, :l]
-    y = y + xi * p["D"].to(dtype)[None, None, :, None]
-    y = y.reshape(b, l, d_in)
-    y = y * F.silu(z.to(torch.float32)).to(dtype)  # gated
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    out = dense(y, p["out_proj"])
-    new_cache = None
-    if cache is not None:
-        cache["h"].copy_(h_final)
-        cache["conv"].copy_(new_conv)
-        new_cache = {"h": cache["h"], "conv": cache["conv"]}
-    return out, new_cache
+    y = y + xi * D.to(dtype)[None, None, :, None]
+    y = y.reshape(b, l, h * hp)
+    return y * F.silu(z.to(torch.float32)).to(dtype), h_final  # gated
+
+
+def _mamba_heads_sharded(p, xi, z, Bm, Cm, dt_raw, h0, s: SSMCfg):
+    """`_mamba_heads` on each rank's rows and heads: `xi` (B, L, H, P) is
+    split by batch and heads, the other inputs whole over the head split
+    (each rank takes its heads' part of `z`, `dt_raw` and the per-head
+    params, and reads B and C whole: their gradients are pending sums over
+    the ranks of the split). The state `h0` (a cache) is taken in the
+    heads' layout. Returns the gated output (B, L, H * P) and the final
+    state (B, H, N, P) as DTensors split like `xi`."""
+    from torch.distributed.tensor import Shard
+
+    b, l, nh, hp = xi.shape
+    split = nn.split_mesh_dims(xi)
+    start, stop = nn._box(xi)
+    h_lo, h_hi = start[2], stop[2]
+    state = tuple(Shard(1) if pl == Shard(2) else pl for pl in xi.placements)
+    heads = slice(h_lo, h_hi)
+    if h0 is not None:
+        from ..runtime import sharding as rsh
+
+        h0 = rsh.redistribute(h0.detach(), state).to_local().to(xi.dtype)
+    y, h_final = _mamba_heads(
+        xi.to_local(), nn.local_part(z, split)[..., h_lo * hp:h_hi * hp],
+        nn.local_part(Bm, split), nn.local_part(Cm, split),
+        nn.local_part(dt_raw, split)[..., heads],
+        *(nn.local_part(p[k], split)[heads] for k in ("A_log", "D", "dt_bias")),
+        h0, s, decode=h0 is not None)
+    from ..runtime import sharding as rsh
+
+    lay = rsh.NamedSharding(xi.device_mesh, state)
+    return (nn._like(y, xi, (b, l, nh * hp)),
+            rsh.from_local(h_final.contiguous(), lay, (b, nh) + tuple(h_final.shape[2:])))
 
 
 def mamba_cache_desc(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.float32) -> dict:

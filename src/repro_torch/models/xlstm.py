@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import nn
 from .config import ModelConfig, XLSTMCfg
 from .nn import P, TensorSpec, causal_conv, dense, rms_norm, shard
 
@@ -151,7 +152,16 @@ def apply_mlstm(p, x, cfg: ModelConfig, *, cache=None):
     'conv': (B,3,d_in) bfloat16}, updated in place. A one-token call WITH
     a cache takes the recurrent update; any other call the chunked form,
     its length padded to a multiple of the chunk (input gate -1e30 and
-    log forget gate 0 there, so the state passes the padding unchanged)."""
+    log forget gate 0 there, so the state passes the padding unchanged).
+
+    Under a mesh x is split by batch: `w_up` and `w_gate` are
+    column-parallel over 'model' and the conv runs on each rank's
+    channels; `wq`, `wk`, `wv` and `w_if` take their rows' split
+    (row-parallel, a float32 pending sum rounded once), so q, k and v come
+    out whole and are split over heads (the reference's
+    `shard(q, "batch", None, "heads", None)`); each rank runs the chunked
+    form or the decode step on its own heads (`_mlstm_heads`), with its
+    heads' part of the gates and of the states C, n, m."""
     xc: XLSTMCfg = cfg.xlstm
     b, l, d = x.shape
     d_in = int(xc.proj_factor * d)
@@ -161,42 +171,87 @@ def apply_mlstm(p, x, cfg: ModelConfig, *, cache=None):
     u = dense(xn, p["w_up"])
     gate = dense(xn, p["w_gate"])
     cu, new_conv = causal_conv(u, p["conv_w"], p["conv_b"], None if cache is None else cache["conv"])
-    q = dense(cu, p["wq"]).reshape(b, l, nh, dk)
-    k = dense(cu, p["wk"]).reshape(b, l, nh, dk)
-    v = dense(u, p["wv"]).reshape(b, l, nh, dk)
-    q = shard(q, "batch", None, "heads", None)
-    k = shard(k, "batch", None, "heads", None)
-    v = shard(v, "batch", None, "heads", None)
-    gates = dense(cu, p["w_if"]).to(torch.float32) + p["if_bias"].to(torch.float32)
-    ig, fg = gates[..., :nh], gates[..., nh:]
-    lf = F.logsigmoid(fg)
+
+    def heads(t):
+        t = nn.on_shards(lambda a: a.reshape(a.shape[0], l, nh, dk), t, (b, l, nh, dk))
+        return shard(t, "batch", None, "heads", None)
+
+    q = heads(dense(cu, p["wq"]))
+    k = heads(dense(cu, p["wk"]))
+    v = heads(dense(u, p["wv"]))
+    gates = dense(cu, p["w_if"])
     state = None
     if cache is not None:
         state = (cache["C"], cache["n"], cache["m"])
-    if l == 1 and cache is not None:
-        y, new_state = mlstm_decode_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], lf[:, 0], state)
-        y = y[:, None]
+    if nn.is_sharded(q):
+        from ..runtime import sharding as rsh
+
+        y, new_state = _mlstm_heads_sharded(q, k, v, gates, p["if_bias"], state, xc.chunk)
+        gate = rsh.redistribute(gate, tuple(y.placements))  # y's columns are its heads
     else:
-        pad = (-l) % xc.chunk
-        if pad:
-            q = F.pad(q, (0, 0, 0, 0, 0, pad))
-            k = F.pad(k, (0, 0, 0, 0, 0, pad))
-            v = F.pad(v, (0, 0, 0, 0, 0, pad))
-            ig = F.pad(ig, (0, 0, 0, pad), value=M_INIT)
-            lf = F.pad(lf, (0, 0, 0, pad))
-        y, new_state = _mlstm_chunked(q, k, v, ig, lf, xc.chunk, state)
-        y = y[:, :l]
-    y = y.reshape(b, l, d_in)
+        y, new_state = _mlstm_heads(q, k, v, gates, p["if_bias"], state, xc.chunk, slice(0, nh))
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     y = y * F.silu(gate.to(torch.float32)).to(y.dtype)
     out = dense(y, p["w_down"])
     new_cache = None
     if cache is not None:
         for key, t in zip(("C", "n", "m"), new_state):
-            cache[key].copy_(t)
-        cache["conv"].copy_(new_conv)
+            nn.write_state(cache[key], t)
+        nn.write_state(cache["conv"], new_conv)
         new_cache = {key: cache[key] for key in ("C", "n", "m", "conv")}
     return out, new_cache
+
+
+def _mlstm_heads(q, k, v, gates, if_bias, state, chunk: int, heads: slice):
+    """The mLSTM of `apply_mlstm` on plain tensors, for the heads `heads`
+    of the (B, L, 2 * H) gate logits (`gates` before `if_bias`, in the
+    compute dtype) that q, k, v (B, L, h, D) and the state (C, n, m) hold:
+    the decode step for one token with a state, else the chunked form.
+    Returns (y (B, L, h * D), the new state)."""
+    b, l, h, dk = q.shape
+    nh = gates.shape[-1] // 2
+    g = gates.to(torch.float32) + if_bias.to(torch.float32)
+    ig, fg = g[..., :nh][..., heads], g[..., nh:][..., heads]
+    lf = F.logsigmoid(fg)
+    if l == 1 and state is not None:
+        y, new_state = mlstm_decode_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0], lf[:, 0], state)
+        y = y[:, None]
+    else:
+        pad = (-l) % chunk
+        if pad:
+            q = F.pad(q, (0, 0, 0, 0, 0, pad))
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+            ig = F.pad(ig, (0, 0, 0, pad), value=M_INIT)
+            lf = F.pad(lf, (0, 0, 0, pad))
+        y, new_state = _mlstm_chunked(q, k, v, ig, lf, chunk, state)
+        y = y[:, :l]
+    return y.reshape(b, l, h * dk), new_state
+
+
+def _mlstm_heads_sharded(q, k, v, gates, if_bias, state, chunk: int):
+    """`_mlstm_heads` on each rank's rows and heads: q, k, v split by batch
+    and heads, the gate logits and `if_bias` whole over the head split
+    (each rank takes its heads' columns; their gradients are pending sums
+    over the split), the state (a cache) taken in the heads' layout.
+    Returns y (B, L, H * D) split like q, and the new state as DTensors."""
+    from torch.distributed.tensor import Shard
+
+    from ..runtime import sharding as rsh
+
+    b, l, nh, dk = q.shape
+    split = nn.split_mesh_dims(q)
+    start, stop = nn._box(q)
+    lay = tuple(Shard(1) if pl == Shard(2) else pl for pl in q.placements)
+    if state is not None:
+        state = tuple(rsh.redistribute(t.detach(), lay).to_local() for t in state)
+    y, new_state = _mlstm_heads(q.to_local(), k.to_local(), v.to_local(),
+                                nn.local_part(gates, split), nn.local_part(if_bias, split),
+                                state, chunk, slice(start[2], stop[2]))
+    named = rsh.NamedSharding(q.device_mesh, lay)
+    full = ((b, nh, dk, dk), (b, nh, dk), (b, nh))
+    return (nn._like(y, q, (b, l, nh * dk)),
+            tuple(rsh.from_local(t.contiguous(), named, f) for t, f in zip(new_state, full)))
 
 
 def mlstm_cache_desc(cfg: ModelConfig, batch: int) -> dict:
@@ -236,21 +291,50 @@ def apply_slstm(p, x, cfg: ModelConfig, *, cache=None):
 
     cache = {'c','n','m','h': (B, NH, HD)}, updated in place; a loop over
     time for l > 1.
+
+    Under a mesh x is split by batch and `w_in` by its columns over
+    'model', on whole heads where the heads divide (else its output is
+    gathered): each rank runs the recurrence of its own heads with its
+    heads' slice of the bias and of the whole `r` (their gradients pending
+    sums over the ranks that read other heads), then the split
+    `out_norm` and the row-parallel `w_out`.
     """
     b, l, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
-    f32 = torch.float32
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    wx = (dense(xn, p["w_in"]) + p["bias"].to(x.dtype)).reshape(b, l, nh, 4 * hd)
-
+    wx = dense(xn, p["w_in"])
+    state = None if cache is None else tuple(cache[k] for k in ("c", "n", "m", "h"))
+    if nn.is_sharded(wx):
+        y, new_state = _slstm_heads_sharded(wx, p["bias"], p["r"], state, nh)
+    else:
+        y, new_state = _slstm_heads(wx.reshape(b, l, nh, 4 * hd), p["bias"], p["r"], state,
+                                    slice(0, nh))
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
+    out = dense(y, p["w_out"])
+    new_cache = None
     if cache is not None:
-        c, n, m, h = (cache[k].to(f32) for k in ("c", "n", "m", "h"))
+        for key, t in zip(("c", "n", "m", "h"), new_state):
+            nn.write_state(cache[key], t)
+        new_cache = {key: cache[key] for key in ("c", "n", "m", "h")}
+    return out, new_cache
+
+
+def _slstm_heads(wx, bias, r, state, heads: slice):
+    """The sLSTM recurrence of `apply_slstm` on plain tensors, for the
+    heads `heads` that `wx` (B, L, h, 4 * HD, before the bias) and the
+    state (c, n, m, h, or None for zeros) hold. Returns (y (B, L, h * HD)
+    in the dtype of `wx`, the new state in float32)."""
+    b, l, h_loc, f4 = wx.shape
+    hd = f4 // 4
+    f32 = torch.float32
+    wx = wx + bias.to(wx.dtype).reshape(-1, f4)[heads]
+    if state is not None:
+        c, n, m, h = (t.to(f32) for t in state)
     else:
         # m starts at zeros, as the zeros cache does
-        c, n, m, h = (torch.zeros((b, nh, hd), dtype=f32, device=x.device) for _ in range(4))
-
-    rmat = p["r"].to(f32)
+        c, n, m, h = (torch.zeros((b, h_loc, hd), dtype=f32, device=wx.device) for _ in range(4))
+    rmat = r.to(f32)[heads]
     hs = []
     for t in range(l):
         z = wx[:, t].to(f32) + torch.einsum("bhd,hdf->bhf", h, rmat)
@@ -263,15 +347,39 @@ def apply_slstm(p, x, cfg: ModelConfig, *, cache=None):
         h = torch.sigmoid(oo) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, l, d).to(x.dtype)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    out = dense(y, p["w_out"])
-    new_cache = None
-    if cache is not None:
-        for key, t in zip(("c", "n", "m", "h"), (c, n, m, h)):
-            cache[key].copy_(t)
-        new_cache = {key: cache[key] for key in ("c", "n", "m", "h")}
-    return out, new_cache
+    y = torch.stack(hs, dim=1).reshape(b, l, h_loc * hd).to(wx.dtype)
+    return y, (c, n, m, h)
+
+
+def _slstm_heads_sharded(wx, bias, r, state, nh: int):
+    """`_slstm_heads` on each rank's rows and heads: `wx` (B, L, 4d) split
+    by batch and over 'model' on whole heads (gathered where the split
+    cuts a head), `bias` and `r` whole (each rank takes its heads' part:
+    their gradients are pending sums over the split), the state (a cache)
+    taken in the heads' layout. Returns y (B, L, d) and the new state,
+    DTensors split by batch and heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..runtime import sharding as rsh
+
+    b, l, f = wx.shape
+    cols = nn._split_dims(wx, 2)
+    if cols and nh % math.prod(wx.device_mesh.size(j) for j in cols):
+        wx = rsh.redistribute(wx, tuple(Replicate() if j in cols else pl
+                                        for j, pl in enumerate(wx.placements)))
+    start, stop = nn._box(wx)
+    f4 = f // nh
+    heads = slice(start[2] // f4, stop[2] // f4)
+    split = nn.split_mesh_dims(wx)
+    lay = tuple(Shard(1) if pl == Shard(2) else pl for pl in wx.placements)
+    if state is not None:
+        state = tuple(rsh.redistribute(t.detach(), lay).to_local() for t in state)
+    local = wx.to_local()
+    y, new_state = _slstm_heads(local.reshape(local.shape[0], l, -1, f4),
+                                nn.local_part(bias, split), nn.local_part(r, split), state, heads)
+    named = rsh.NamedSharding(wx.device_mesh, lay)
+    return (nn._like(y, wx, (b, l, f // 4)),
+            tuple(rsh.from_local(t.contiguous(), named, (b, nh, f4 // 4)) for t in new_state))
 
 
 def slstm_cache_desc(cfg: ModelConfig, batch: int) -> dict:

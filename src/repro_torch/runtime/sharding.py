@@ -405,7 +405,8 @@ def redistribute(x: Any, placements: tuple) -> Any:
     """DTensor `x` under `placements` on its own mesh, with two collectives
     only: a split that ends is gathered (`_gather_split`) and a pending sum
     that ends is added up (DTensor's all-reduce, which gloo runs on CUDA
-    tensors); what is left is local (a slice, or a sum left pending)."""
+    tensors); what is left is local: a split that starts is each rank's
+    slice (`_split_local`), or a sum left pending."""
     from torch.distributed.tensor import Replicate, Shard
 
     placements = tuple(placements)
@@ -418,7 +419,32 @@ def redistribute(x: Any, placements: tuple) -> Any:
         x = x.redistribute(x.device_mesh, summed)
     if tuple(x.placements) == placements:
         return x
+    if all(c == t or (isinstance(c, Replicate) and isinstance(t, Shard))
+           for c, t in zip(x.placements, placements)):
+        return _split_local(x, placements)
     return x.redistribute(x.device_mesh, placements)
+
+
+def _split_local(x: Any, placements: tuple) -> Any:
+    """Replicated DTensor `x` split where `placements` name a Shard: each
+    rank keeps its box of its local tensor. Its gradient is declared a
+    pending sum over the mesh dims that split (the rank's box of the
+    gradient, zeros elsewhere), so autograd gathers nothing (DTensor's own
+    backward of the slice is an all-gather, which gloo cannot run on CUDA
+    tensors)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    shape = tuple(int(s) for s in x.shape)
+    mesh = x.device_mesh
+    start, _ = local_box(NamedSharding(mesh, tuple(x.placements)), shape)
+    lo, hi = local_box(NamedSharding(mesh, placements), shape)
+    local = x.to_local(grad_placements=tuple(
+        Partial() if isinstance(c, Replicate) and c != t else c
+        for c, t in zip(x.placements, placements)))
+    for d, (a, b, s) in enumerate(zip(lo, hi, start)):
+        if b - a != local.shape[d]:
+            local = local.narrow(d, a - s, b - a)
+    return from_local(local.contiguous(), NamedSharding(mesh, placements), shape)
 
 
 def lay_out(x: Any, sharding: NamedSharding) -> Any:

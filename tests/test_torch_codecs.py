@@ -228,3 +228,57 @@ def test_huffman_table_flag_and_roundtrip(monkeypatch):
 def test_entropy_bits_matches_reference():
     hist = np.array([0, 3, 5, 0, 9, 1])
     assert p_ent.entropy_bits(hist) == r_ent.entropy_bits(hist)
+
+
+def _symbols(kind, n, rng):
+    if kind == "single":
+        return np.full(n, 5)
+    if kind == "two":
+        return rng.integers(3, 5, n)
+    if kind == "geometric":
+        return rng.geometric(0.3, n)
+    if kind == "uniform":
+        return rng.integers(0, 3000, n)
+    # one symbol nearly everywhere, rare ones from a wide alphabet: long codewords
+    return np.where(rng.random(n) < 0.97, 7, rng.integers(0, 1 << 16, n))
+
+
+@pytest.mark.parametrize("kind,n", [("single", 1), ("single", 3000), ("two", 5000),
+                                    ("geometric", 7), ("geometric", 80000),
+                                    ("uniform", 50000), ("skewed", 120000)])
+def test_huffman_decode_matches_reference_walk(kind, n):
+    """The segment-parallel decode gives the reference's sequential walk's
+    symbols exactly, for one segment and for thousands of them (a segment
+    is at least 512 bits), and refuses a stream cut short."""
+    sym = _symbols(kind, n, np.random.default_rng(n))
+    table = p_ent.build_table(np.bincount(sym))
+    buf = p_ent.encode(sym, table)
+    assert buf == r_ent.encode(sym, r_ent.build_table(np.bincount(sym)))
+    got = p_ent.decode(buf, table, n)
+    np.testing.assert_array_equal(got, r_ent.decode(buf, r_ent.HuffmanTable(table.lens,
+                                                                          table.codes), n))
+    np.testing.assert_array_equal(got, sym)
+    with pytest.raises(ValueError, match="codewords"):
+        p_ent.decode(buf, table, 8 * len(buf) + 1)
+
+
+@pytest.mark.parametrize("shape,kind", [((96, 80), "smooth"), ((24, 40, 32), "noise"),
+                                        ((2048,), "noise")])
+def test_zfp_stream_byte_equal_over_many_chunks(monkeypatch, shape, kind):
+    """The plane emitter codes its blocks a chunk at a time, on each plane's
+    active blocks only; with chunks of 7 blocks (one chunk all inactive at
+    the top planes, a short last chunk) the stream is still the
+    reference's byte for byte, at a wide range of magnitudes."""
+    monkeypatch.setattr(p_zfp, "EMIT_CHUNK", 7)
+    x = _field(shape, 8, kind)
+    x = x * np.float32(10.0) ** np.random.default_rng(9).uniform(-4, 4, shape).astype(np.float32)
+    eb = 1e-5 * float(x.max() - x.min())
+    ours = p_zfp.zfp_compress(x, eb)
+    assert ours == r_zfp.zfp_compress(x, eb)
+    np.testing.assert_array_equal(p_zfp.zfp_decompress(ours), r_zfp.zfp_decompress(ours))
+
+
+def test_bit_lengths_exact_past_float_precision():
+    m = np.array([0, 1, 2, 3, 255, 256, (1 << 53) - 1, 1 << 53, (1 << 60) - 1, 1 << 60,
+                  (1 << 62) + 12345], dtype=np.int64)
+    np.testing.assert_array_equal(p_zfp._bit_lengths(m), [int(v).bit_length() for v in m])

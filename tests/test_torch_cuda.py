@@ -1241,6 +1241,37 @@ def test_mesh_moe_mla_layer_two_ranks_on_card(cuda_device, tmp_path, mesh):
     assert payloads[0]["prefill"] == payloads[1]["prefill"]
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_mesh_recurrent_train_step_two_ranks_on_card(cuda_device, tmp_path, arch):
+    """`test_mesh_train_step_two_ranks_on_card` for the reduced hybrid and
+    xLSTM (float32) under `TRAIN_RULES_TP` on (1, 2): the Mamba2 fused
+    projection gathered along its columns and the scan on each rank's
+    heads, the mLSTM and sLSTM on each rank's heads; the loss and every
+    gradient held to the unsharded step on the card at the same bounds,
+    and the share of a leaf's values that one compressed step moves apart
+    at tests/test_torch_train_families.py's 2e-2 (the hybrid's conv_b
+    flips up to 1.2% of its codes over three steps)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_shard_worker as W
+
+    payloads = W.run_job("card_train", 2, tmp_path, timeout_s=300.0,
+                         args={"arch": arch, "mesh": [1, 2], "rules": "TRAIN_RULES_TP"})
+    for p in payloads:
+        assert p["backend"] == "gloo" and p["device"].startswith("cuda"), p
+        if arch == "zamba2-1.2b":
+            assert p["specs"]["mamba_groups/in_proj"] == [None, None, None, "model"], p["specs"]
+        else:
+            assert p["specs"]["groups/m/wq"] == [None, None, "model", None], p["specs"]
+        assert p["loss"] <= 1e-5, p["loss"]
+        assert all(d <= 1e-4 for d in p["grads"].values()), p["grads"]
+        assert p["metrics"]["grad_norm"] <= 1e-4 and p["metrics"]["wire_bits_per_value"] <= 1e-3
+        for k, (share, most) in p["params"].items():
+            assert share <= 2e-2 and most <= 2.0, (k, share, most)
+
+
 @pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
 def test_mesh_moe_mla_train_step_two_ranks_on_card(cuda_device, tmp_path, mesh):
     """`test_mesh_train_step_two_ranks_on_card` for deepseek-v2-236b at a

@@ -32,7 +32,7 @@ carried to both packages.
   reference's step, three chained compressed steps, the collectives
   DTensor plans itself, and `launch.train.run(mesh=)` for deepseek.
 * Layouts: `cache_sharding` of these caches against the reference's, and
-  the configs that still raise under a mesh.
+  the cache layout that still raises under a mesh (a sequence split).
 
 Tolerances are those of tests/test_torch_mesh.py (serving) and
 tests/test_torch_mesh_train.py (training), with two more rules from
@@ -676,7 +676,7 @@ def test_launcher_on_a_mesh_matches_unsharded(results):
     assert got["params_specs"]["blocks/mlp/w_up"] == [None, "model", "data", None]
 
 
-# -- layouts and refusals --------------------------------------------------------------
+# -- layouts and the sequence-split refusal -------------------------------------------
 
 
 #: (arch, mesh, batch, max_len): the size-matching quirks of the reference's
@@ -724,21 +724,6 @@ def test_write_into_a_sequence_split_cache_names_its_item(results, shape):
     for p in results[0][shape][0]:
         msg = p["refused"][DEEPSEEK]
         assert msg is not None and "item 14d" in msg, msg
-
-
-REFUSED = ["internvl2-76b", "xlstm-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"]
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_under_a_mesh_name_their_item(arch):
-    """A frontend config, `XLSTMLM`, `HybridLM` and `EncDecLM` still raise
-    under a mesh, naming item 14e; the MoE and MLA decoders no longer do."""
-    model = build_model(reduced_for_smoke(get_config(arch)), device="cpu")
-    with rsh.activate(_stand_in((2, 2)), rsh.SERVE_RULES):
-        with pytest.raises(NotImplementedError, match="item 14e"):
-            model.init_cache(4, 8)
-    for ok in ARCHS:
-        assert build_model(reduced_for_smoke(get_config(ok)), device="cpu")._mesh_ready()
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in MOE_BLOCKS])

@@ -75,23 +75,24 @@ ELIGIBILITY = [
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
-def run_job(scenario: str, n: int, workdir, args=None, timeout_s: float = 120.0):
+def run_job(scenario: str, n: int, workdir, args=None, timeout_s: float = 120.0, env=None):
     """Run `scenario` as an `n`-rank gloo job (this file, one interpreter a
     rank) under a hard timeout; every rank's payload, or an
-    AssertionError with the failed ranks' output."""
+    AssertionError with the failed ranks' output. `env` adds variables to
+    the ranks' environment."""
     from repro_torch.launch import mhrun
 
-    return mhrun.require_success(launch(scenario, n, workdir, args, timeout_s))
+    return mhrun.require_success(launch(scenario, n, workdir, args, timeout_s, env))
 
 
-def launch(scenario: str, n: int, workdir, args=None, timeout_s: float = 120.0):
+def launch(scenario: str, n: int, workdir, args=None, timeout_s: float = 120.0, env=None):
     from repro_torch.launch import mhrun
 
     return mhrun.run(
         [sys.executable, os.path.abspath(__file__)], n, scenario=scenario, args=args or {},
         timeout_s=timeout_s, workdir=str(workdir),
         extra_env={"PYTHONPATH": _SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
-                   "OMP_NUM_THREADS": "2"},
+                   "OMP_NUM_THREADS": "2", **(env or {})},
     )
 
 
@@ -510,6 +511,27 @@ def _moe_block(spec: dict, mesh, case: dict) -> dict:
                 kept=dist.gather(kept).numpy(), gathers=gathers.seen)
 
 
+def frontend_inputs(cfg, batch: int, rng) -> dict:
+    """The vision stub's patch embeddings or the encoder-decoder's frames
+    (batch, frontend_len, d_model) float32, drawn from `rng` as
+    `launch.serve.run_static` draws them after the prompts; {} for the
+    other families."""
+    name = "patch_embeds" if cfg.frontend == "vision" else "frames" if cfg.encdec else None
+    if name is None:
+        return {}
+    return {name: rng.standard_normal((batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)}
+
+
+def train_batch(cfg, dcfg, step: int) -> dict:
+    """`data.synthetic_batch(dcfg, step)` and, for a vision or
+    encoder-decoder config, its frontend inputs drawn from numpy seed
+    100 + step (tests/test_torch_train_families.py's frames)."""
+    from repro_torch.data import synthetic_batch
+
+    return dict(synthetic_batch(dcfg, step),
+                **frontend_inputs(cfg, dcfg.global_batch, np.random.default_rng(100 + step)))
+
+
 def scenario_mesh_serve(spec: dict, rank: int) -> dict:
     """The decoder-only LMs served under `SERVE_RULES` on a mesh of the
     job's ranks: for each (dtype, batch) case of `args["arch"]` (weights
@@ -575,12 +597,15 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
                                    teacher=teacher[:batch, : a["gen"] - 1], keep=True)
         cache = _flat(res["cache"])
         whole = {k: dist.gather(v) for k, v in cache.items()}
-        # the forward without a cache (no bfloat16 K/V on the way)
-        prompts = np.random.default_rng(0).integers(1, cfg.vocab, (batch, a["prompt_len"]))
+        # the forward without a cache (no bfloat16 K/V on the way), on
+        # run_static's prompts and frontend inputs
+        rng = np.random.default_rng(0)
+        inputs = dict(tokens=rng.integers(1, cfg.vocab, (batch, a["prompt_len"])).astype(np.int32),
+                      **frontend_inputs(cfg, batch, rng))
+        lay_in = batch_shardings(inputs, mesh, batch)
         with rsh.activate(mesh, rsh.SERVE_RULES):
-            tok = dist.put_global(torch.as_tensor(prompts, dtype=torch.int32),
-                                  batch_shardings({"t": prompts}, mesh, batch)["t"])
-            logits, _ = model.forward(params, {"tokens": tok})
+            logits, _ = model.forward(params, {k: dist.put_global(torch.from_numpy(v), lay_in[k])
+                                               for k, v in inputs.items()})
         out["/".join(str(c) for c in case)] = dict(
             forward=dist.gather(logits).numpy(),
             logits=[t.numpy() for t in res["logits"]], tokens=res["tokens"],
@@ -669,7 +694,7 @@ def scenario_mesh_train(spec: dict, rank: int) -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.data import DataConfig
     from repro_torch.launch import train
     from repro_torch.launch.dryrun import batch_shardings
     from repro_torch.launch.mesh import make_emulated_mesh
@@ -697,10 +722,11 @@ def scenario_mesh_train(spec: dict, rank: int) -> dict:
         lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rules, mesh, mnn.abstract_tree(desc)))
         params = nest({k: dist.put_global(torch.from_numpy(w), lay[k]) for k, w in weights.items()})
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=a["seq"], global_batch=a["batch"])
-        shape = np.zeros((a["batch"], a["seq"]))
-        blay = batch_shardings({"tokens": shape, "labels": shape}, mesh, a["batch"])
-        batches = [{k: dist.put_global(torch.from_numpy(v), blay[k])
-                    for k, v in synthetic_batch(dcfg, s).items()} for s in range(a["steps"])]
+        batches = []
+        for s in range(a["steps"]):
+            b = train_batch(cfg, dcfg, s)
+            blay = batch_shardings(b, mesh, a["batch"])
+            batches.append({k: dist.put_global(torch.from_numpy(v), blay[k]) for k, v in b.items()})
         with rsh.activate(mesh, rules):
             with CommDebugMode() as comm:
                 grads, aux = steps.loss_and_grads(model, params, batches[0])
@@ -756,19 +782,49 @@ def scenario_mesh_moe(spec: dict, rank: int) -> dict:
                 guard=served["guard"])
 
 
+def scenario_mesh_families(spec: dict, rank: int) -> dict:
+    """`scenario_mesh_moe` for the vision frontend, the encoder-decoder,
+    the hybrid and xLSTM, plus each family's cache under a mesh as
+    `init_cache` lays it out (`args["init_cache"]`: (arch, batch,
+    max_len) cases: every leaf a DTensor, its spec)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.models import build_model, reduced_for_smoke
+    from repro_torch.models import nn as mnn
+    from repro_torch.runtime import sharding as rsh
+
+    # the reference compiles in the test's process meanwhile: the ranks
+    # take the cycles it leaves
+    os.nice(10)
+    out = scenario_mesh_moe(spec, rank)
+    a = spec["args"]
+    mesh = make_emulated_mesh(tuple(a["serve"]["mesh"]), device="cpu")
+    caches = {}
+    for arch, batch, max_len in a.get("init_cache", []):
+        model = build_model(reduced_for_smoke(get_config(arch)), device="cpu")
+        with rsh.activate(mesh, rsh.SERVE_RULES):
+            cache = _flat(model.init_cache(batch, max_len))
+        caches[arch] = {k: (_spec(v) if mnn.is_sharded(v) else None) for k, v in cache.items()}
+    return dict(out, init_cache=caches)
+
+
 def card_config(arch: str):
     """The config a card test runs `arch` at: phi4-mini-3.8b at full width
     and one layer; smollm-360m at full width and 2 layers, float32;
     deepseek-v2-236b at a reduced width (d_model 1024, 16 heads, MLA latent
     256, top-6 of 16 experts and 2 shared ones) and 2 layers, its leading
     dense layer and one MoE layer, float32 (the routing then agrees with
-    the unsharded run's, as tests/test_torch_moe.py explains)."""
+    the unsharded run's, as tests/test_torch_moe.py explains); zamba2-1.2b
+    and xlstm-1.3b at their `reduced_for_smoke` sizes, float32."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
     from repro_torch.models.config import MLACfg
 
     cfg = get_config(arch)
+    if arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        return reduced_for_smoke(cfg).scaled(dtype="float32")
     if arch == "phi4-mini-3.8b":
         return cfg.scaled(n_layers=1)
     if arch == "smollm-360m":
@@ -848,7 +904,8 @@ def scenario_card_train(spec: dict, rank: int) -> dict:
     """Two ranks on one card over gloo, on the ('data', 'model') mesh of
     `args["mesh"]`: `args["arch"]` at its `card_config` (default
     smollm-360m at full width and 2 layers, float32) under
-    `activate(mesh, TRAIN_RULES)`, one batch of 4 x 64 tokens. For
+    `activate(mesh, rules)` (`args["rules"]`, default `TRAIN_RULES`), one
+    batch of 4 x 64 tokens. For
     smollm-360m on (1, 2), 15 query and 5 KV heads: `split_heads` gathers
     Q, K and V, the vocab is split over 'model'; on (2, 1), FSDP: the batch
     split over 'data', each weight's 'embed' dim gathered before its
@@ -872,10 +929,11 @@ def scenario_card_train(spec: dict, rank: int) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_emulated_mesh(tuple(spec["args"]["mesh"]))
     cfg = card_config(spec["args"].get("arch", "smollm-360m"))
+    rules = getattr(rsh, spec["args"].get("rules", "TRAIN_RULES"))
     model = build_model(cfg, device=dev)
     desc = model.desc()
     full = mnn.init_tree(desc, torch.Generator(device=dev).manual_seed(0), device=dev)
-    lay = rsh.tree_shardings(mnn.axes_tree(desc), rsh.TRAIN_RULES, mesh, mnn.abstract_tree(desc))
+    lay = rsh.tree_shardings(mnn.axes_tree(desc), rules, mesh, mnn.abstract_tree(desc))
     params = mnn.tree_map(dist.put_global, full, lay)
     plain = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), 0)
     blay = batch_shardings(plain, mesh, 4)
@@ -883,7 +941,7 @@ def scenario_card_train(spec: dict, rank: int) -> dict:
     batch = {k: dist.put_global(v, blay[k]) for k, v in plain.items()}
     gc = GradCompressConfig(eb_rel=1e-3)
     step = steps.make_train_step(model, AdamWConfig(lr=1e-3, total_steps=100, warmup_steps=5), gc)
-    with rsh.activate(mesh, rsh.TRAIN_RULES):
+    with rsh.activate(mesh, rules):
         grads, aux = steps.loss_and_grads(model, params, batch)
         grads = {k: dist.gather(v) for k, v in _flat(grads).items()}
         params, _, metrics = step(params, steps.init_opt_state(params, gc), batch)
@@ -919,6 +977,7 @@ SCENARIOS = {
     "card": scenario_card,
     "card_layer": scenario_card_layer,
     "card_train": scenario_card_train,
+    "mesh_families": scenario_mesh_families,
     "mesh_moe": scenario_mesh_moe,
     "mesh_serve": scenario_mesh_serve,
     "mesh_train": scenario_mesh_train,
