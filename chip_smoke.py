@@ -199,7 +199,29 @@ phase that goes wrong:
    states and conv windows, the encoder memory) within the bound, decode
    ms beside the unsharded run's, the collectives of a decode step, the
    peak of each rank. No kernel runs here;
-19. one JSON line with every kernel's launches on its path, error, times,
+19. the dry run's cache variants under a mesh (`[mesh-cache]`, after
+   `[mesh-families]`): phi4-mini-3.8b (4 of 32 layers) with the int8 KV
+   cache, and smollm-360m at full depth (15 query and 5 KV heads: no
+   head dim divides 'model') with its cache split along its sequence
+   (256 rows over 'model'), alone and with the int8 cache, each served
+   unsharded, then ONE four-rank job on (2, 2) under `SERVE_RULES` as 18
+   serves its models: logits within `MESH_SERVE_RTOL`, every leaf on its
+   placements, the K/V leaves' sequence dim asserted Shard where the case
+   splits it, the gathered caches (the int8 cache as codes x scale) within
+   the bound, decode ms beside the unsharded run's, the collectives of a
+   decode step, the peak of each rank. No kernel runs here;
+20. the dry-run launcher (`[dryrun]`): the production cells of
+   `DRYRUN_CELLS`, traced in the background from the start of the run
+   (`python -m repro_torch.launch.dryrun` on fake tensors over a fake
+   group of 256 or 512 ranks, full width and depth), each reporting ok or
+   the reference's SKIP(full-attn), with its roofline terms, dominant
+   term, useful-FLOPs ratio, argument MB and trace seconds; and its
+   calibration on the card: smollm-360m decode_32k at one layer unit
+   counted on fake tensors over a one-rank (1, 1) mesh, then run for real
+   (FLOPs and argument bytes equal exactly, the `MemTracker` peak within
+   `DRYRUN_PEAK_RTOL` of the card's), its ms beside the roofline's times.
+   No kernel runs here;
+21. one JSON line with every kernel's launches on its path, error, times,
    bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -220,9 +242,10 @@ phi4-mini serving phases of 11, `--moe-mla` only the MoE and MLA ones,
 and `--decode-profile [ARCH]` traces full-width decode steps of
 phi4-mini-3.8b or ARCH (`decode_profile`). `--train` runs only the training phases (12),
 `--zoo` only the phases of 13, `--sharded` only the phase of 14 (with the
-fields it needs), `--mesh-serve`, `--mesh-train`, `--mesh-moe` and
-`--mesh-families` only the phases of 15, 16, 17 and 18, and
-`--train-profile` traces three full-width train steps (`train_profile`).
+fields it needs), `--mesh-serve`, `--mesh-train`, `--mesh-moe`,
+`--mesh-families`, `--mesh-cache` and `--dryrun` only the phases of 15,
+16, 17, 18, 19 and 20, and `--train-profile` traces three full-width
+train steps (`train_profile`).
 """
 
 from __future__ import annotations
@@ -3514,12 +3537,12 @@ def mesh_serve_dir() -> Path:
     return ROOT / "build" / "mesh_serve"
 
 
-def _mesh_serve_args(device: str, arch: str, smoke: bool):
+def _mesh_serve_args(device: str, arch: str, smoke: bool, prompt: int = MESH_SERVE_PROMPT,
+                     steps: int = MESH_SERVE_FORCED + MESH_SERVE_FREE):
     from repro_torch.launch import serve
 
     return serve.parse_args(["--arch", arch, "--device", device, "--batch", str(MESH_SERVE_BATCH),
-                             "--prompt-len", str(MESH_SERVE_PROMPT),
-                             "--gen", str(1 + MESH_SERVE_FORCED + MESH_SERVE_FREE)]
+                             "--prompt-len", str(prompt), "--gen", str(1 + steps)]
                             + (["--smoke"] if smoke else []))
 
 
@@ -3921,8 +3944,40 @@ MESH_FAMILIES_RTOL = {"internvl2-76b": MESH_SERVE_RTOL, "seamless-m4t-large-v2":
 MESH_FAMILIES_LEAF_RTOL = {("xlstm-1.3b", "groups/s/c"): 0.12, ("xlstm-1.3b", "groups/s/n"): 0.11}
 
 
-def mesh_families_dir() -> Path:
-    return ROOT / "build" / "mesh_families"
+#: `[mesh-cache]`: the dry run's cache variants served under a mesh, each
+#: at full width, a prefill then 4 decode steps fed the unsharded tokens
+#: (no greedy ones: a seqkv step of 32 layers takes ~1.1 s over gloo):
+#: phi4-mini-3.8b at 4 of its 32 layers with the int8 KV cache (its 8 KV
+#: heads split over 'model'); smollm-360m at full depth, whose 5 KV heads
+#: (and 15 query heads) no 'model' of 2 divides, with its cache split
+#: along its sequence (`cache_sharding(seq_shard=True)`: 256 rows, 128 x
+#: 2, from a prefill of 251 and 5 steps), alone and with the int8 cache
+#: ('combo'). name -> (arch, config changes, prompt, forced and greedy
+#: steps, sequence split)
+MESH_CACHE = {
+    "phi4-mini-3.8b/kvq8": dict(arch="phi4-mini-3.8b", cut=dict(n_layers=4, kv_quant=True),
+                                prompt=MESH_SERVE_PROMPT, forced=4, free=0, seq_shard=False),
+    "smollm-360m/seqkv": dict(arch="smollm-360m", cut={}, prompt=251, forced=4, free=0,
+                              seq_shard=True),
+    "smollm-360m/combo": dict(arch="smollm-360m", cut=dict(kv_quant=True), prompt=251,
+                              forced=4, free=0, seq_shard=True),
+}
+MESH_CACHE_TIMEOUT_S = 600.0
+
+
+def _mesh_cases(table: str) -> dict:
+    """`[mesh-families]`'s models (table "families") or `[mesh-cache]`'s
+    cases ("cache"): name -> (arch, config changes, prompt, forced and
+    greedy steps, sequence split)."""
+    if table == "cache":
+        return MESH_CACHE
+    return {arch: dict(arch=arch, cut=cut, prompt=MESH_SERVE_PROMPT, forced=MESH_SERVE_FORCED,
+                       free=MESH_SERVE_FREE, seq_shard=False)
+            for arch, cut in MESH_FAMILIES.items()}
+
+
+def mesh_families_dir(table: str = "families") -> Path:
+    return ROOT / "build" / f"mesh_{table}"
 
 
 def _batch_dims(model, max_len: int) -> dict:
@@ -3933,8 +3988,12 @@ def _batch_dims(model, max_len: int) -> dict:
             for k in one if k != "pos"}
 
 
-def phase_mesh_families(torch, np, dev, card, smoke: bool = False) -> dict:
-    """`[mesh-families]`: each `MESH_FAMILIES` model served unsharded on
+def phase_mesh_families(torch, np, dev, card, smoke: bool = False,
+                        table: str = "families") -> dict:
+    """`[mesh-families]` (and `[mesh-cache]`: table "cache", the
+    `MESH_CACHE` cases, each cache's sequence dim asserted split where the
+    case splits it, the int8 cache compared as values, codes x scale):
+    each `MESH_FAMILIES` model served unsharded on
     the card by `launch.serve.run_static` (a prefill of 4 x 64 after the
     patches or frames, 16 greedy steps), its logits, tokens and cache kept
     on the host, the card freed after each; then ONE four-rank job
@@ -3959,19 +4018,21 @@ def phase_mesh_families(torch, np, dev, card, smoke: bool = False) -> dict:
 
     from repro_torch.launch import mhrun, serve
 
+    tag, cases = f"mesh-{table}", _mesh_cases(table)
     free_card(torch)
-    wd = mesh_families_dir()
+    wd = mesh_families_dir(table)
     shutil.rmtree(wd, ignore_errors=True)
     t0 = time.perf_counter()
     base_ms, n_params = {}, {}
-    for arch in MESH_FAMILIES:
-        ad = wd / arch
+    for name, case in cases.items():
+        ad = wd / name
         ad.mkdir(parents=True)
-        args = _mesh_serve_args(dev.type, arch, smoke)
-        cfg, model, params = _mesh_serve_build(torch, args, **MESH_FAMILIES[arch])
-        n_params[arch] = sum(a.numel() for a in _leaves(params))
+        args = _mesh_serve_args(dev.type, case["arch"], smoke, case["prompt"],
+                                case["forced"] + case["free"])
+        cfg, model, params = _mesh_serve_build(torch, args, **case["cut"])
+        n_params[name] = sum(a.numel() for a in _leaves(params))
         base = serve.run_static(args, cfg, model, params, keep=True)
-        base_ms[arch] = dict(prefill_ms=base["prefill_s"] * 1e3,
+        base_ms[name] = dict(prefill_ms=base["prefill_s"] * 1e3,
                              decode_ms_per_step=base["decode_s"] * 1e3 / (args.gen - 1))
         np.save(ad / "tokens.npy", base["tokens"])
         np.save(ad / "logits.npy", np.stack([t.numpy() for t in base["logits"]]))
@@ -3982,67 +4043,75 @@ def phase_mesh_families(torch, np, dev, card, smoke: bool = False) -> dict:
     t0 = time.perf_counter()
     results = mhrun.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-worker"], MESH_SERVE_RANKS,
-        scenario="mesh_families", backend="gloo", timeout_s=MESH_FAMILIES_TIMEOUT_S,
+        scenario="mesh_families", backend="gloo",
+        timeout_s=MESH_CACHE_TIMEOUT_S if table == "cache" else MESH_FAMILIES_TIMEOUT_S,
         workdir=str(wd / "mhrun"), extra_env={"OMP_NUM_THREADS": "2"},
-        args=dict(smoke=smoke, device=dev.type, dir=str(wd)),
+        args=dict(smoke=smoke, device=dev.type, dir=str(wd), table=table),
     )
     job_s = time.perf_counter() - t0
     payloads = mhrun.require_success(results)
     out, failed = {}, []
-    for arch in MESH_FAMILIES:
-        got = [p["models"][arch] for p in payloads]
+    for name, case in cases.items():
+        arch = case["arch"]
+        got = [p["models"][name] for p in payloads]
         g0 = got[0]
-        bound = MESH_FAMILIES_RTOL[arch]
+        bound = MESH_FAMILIES_RTOL.get(arch, MESH_SERVE_RTOL)
         for g in got:
             if g["tokens"] != g0["tokens"]:
-                failed.append(f"{arch}: rank {g['rank']} holds other tokens")
+                failed.append(f"{name}: rank {g['rank']} holds other tokens")
             if g["param_misplaced"]:
-                failed.append(f"{arch}: rank {g['rank']}: params off their rules' placements: "
+                failed.append(f"{name}: rank {g['rank']}: params off their rules' placements: "
                               f"{g['param_misplaced'][:4]}")
             if g["cache_misplaced"]:
-                failed.append(f"{arch}: rank {g['rank']}: cache off cache_sharding's "
+                failed.append(f"{name}: rank {g['rank']}: cache off cache_sharding's "
                               f"placements: {g['cache_misplaced']}")
+            unsplit = [k for k, split in g["seq_split"].items() if not split]
+            if case["seq_shard"] and (unsplit or not g["seq_split"]):
+                failed.append(f"{name}: rank {g['rank']}: the sequence dim of "
+                              f"{unsplit or 'no K/V leaf'} is not Shard")
         rel = g0["rel"]
-        if len(rel) != 1 + MESH_SERVE_FORCED:
-            failed.append(f"{arch}: {len(rel)} logits compared")
-        failed += [f"{arch} step {i}: sharded logits {d:.4g} of max|logit| off the unsharded "
+        if len(rel) != 1 + case["forced"]:
+            failed.append(f"{name}: {len(rel)} logits compared")
+        failed += [f"{name} step {i}: sharded logits {d:.4g} of max|logit| off the unsharded "
                    f"run's (bound {bound})" for i, d in enumerate(rel) if d > bound]
         leaf_bound = {k: MESH_FAMILIES_LEAF_RTOL.get((arch, k), bound) for k in g0["cache_rel"]}
-        failed += [f"{arch} cache {k}: {d:.4g} of max|cache| off the unsharded cache "
+        failed += [f"{name} cache {k}: {d:.4g} of max|cache| off the unsharded cache "
                    f"(bound {leaf_bound[k]})" for k, d in g0["cache_rel"].items()
                    if d > leaf_bound[k]]
-        want = np.load(wd / arch / "tokens.npy")
-        logits = np.load(wd / arch / "logits.npy", mmap_mode="r")
+        want = np.load(wd / name / "tokens.npy")
+        logits = np.load(wd / name / "logits.npy", mmap_mode="r")
         tok = np.asarray(g0["tokens"])
         differ = [dict(row=int(r), step=int(c), sharded=int(tok[r, c]), unsharded=int(want[r, c]),
                        unsharded_top2_margin=_margin(np, logits[c, r]))
                   for r, c in zip(*np.nonzero(tok != want))]
-        out[arch] = dict(
-            layers=MESH_FAMILIES[arch], params=n_params[arch], rel_by_step=rel,
+        out[name] = dict(
+            layers=case["cut"], params=n_params[name], rel_by_step=rel,
+            seq_split=g0["seq_split"], cache_specs=g0["cache_specs"],
             cache_rel=g0["cache_rel"], cache_bound=leaf_bound,
             state_rows_compared=g0["state_rows"],
             tokens_differ=differ, leaves=g0["leaves"],
             decode_ms_per_step=max(g["decode_ms"] for g in got),
             decode_ms_by_rank=[g["decode_ms"] for g in got],
-            prefill_ms=max(g["prefill_ms"] for g in got), unsharded=base_ms[arch],
+            prefill_ms=max(g["prefill_ms"] for g in got), unsharded=base_ms[name],
             collectives_decode_step=g0["comm_decode"],
             staged_gathers_decode_step=g0["staged_decode"],
             peak_gib_by_rank=[g["peak_gib"] for g in got])
-        log("mesh-families", json.dumps(dict(arch=arch, **out[arch], bound=bound, card=card)))
-    log("mesh-families", json.dumps(dict(
+        log(tag, json.dumps(dict(case=name, **out[name], bound=bound, card=card)))
+    log(tag, json.dumps(dict(
         mesh=payloads[0]["mesh"], backend=payloads[0]["backend"], ranks=len(payloads),
-        unsharded_s=unsharded_s, job_s=job_s, forced_steps=MESH_SERVE_FORCED,
-        free_steps=MESH_SERVE_FREE, card=card)))
+        unsharded_s=unsharded_s, job_s=job_s,
+        steps={n: [c["forced"], c["free"]] for n, c in cases.items()}, card=card)))
     shutil.rmtree(wd, ignore_errors=True)
-    check(not failed, "[mesh-families] " + "; ".join(failed))
+    check(not failed, f"[{tag}] " + "; ".join(failed))
     return dict(models=out, job_s=job_s, unsharded_s=unsharded_s)
 
 
 def mesh_families_worker(spec: dict, rank: int) -> dict:
-    """One rank of `[mesh-families]` (`phase_mesh_families` says what it
-    does): each model in turn, the card freed after each."""
+    """One rank of `[mesh-families]` or `[mesh-cache]` (`phase_mesh_families`
+    says what it does): each case in turn, the card freed after each."""
     import numpy as np
     import torch
+    from torch.distributed.tensor import Shard
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch import serve
@@ -4060,12 +4129,13 @@ def mesh_families_worker(spec: dict, rank: int) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_emulated_mesh(MESH_SERVE_MESH, device=a["device"])
     models = {}
-    for arch in MESH_FAMILIES:
-        wd = Path(a["dir"]) / arch
+    for name, case in _mesh_cases(a.get("table", "families")).items():
+        wd = Path(a["dir"]) / name
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        args = _mesh_serve_args(a["device"], arch, a["smoke"])
-        cfg, model, params = _mesh_serve_build(torch, args, mesh, **MESH_FAMILIES[arch])
+        args = _mesh_serve_args(a["device"], case["arch"], a["smoke"], case["prompt"],
+                                case["forced"] + case["free"])
+        cfg, model, params = _mesh_serve_build(torch, args, mesh, **case["cut"])
         desc = model.desc()
         flat = _flat(params)
         rules = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
@@ -4073,32 +4143,39 @@ def mesh_families_worker(spec: dict, rank: int) -> dict:
         param_misplaced = [k for k, v in flat.items()
                            if tuple(v.placements) != tuple(rules[k].placements)]
         want_tokens = np.load(wd / "tokens.npy")
-        teacher = want_tokens[:, :MESH_SERVE_FORCED]
-        res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True)
+        teacher = want_tokens[:, :case["forced"]]
+        res = serve.run_static(args, cfg, model, params, mesh=mesh, teacher=teacher, keep=True,
+                               seq_shard=case["seq_shard"])
         cache = res["cache"]
         patches = cfg.frontend_len if cfg.frontend == "vision" else 0
         max_len = patches + args.prompt_len + args.gen
         lay = _flat(rsh.cache_sharding(model.cache_desc(args.batch, max_len), mesh, args.batch,
-                                       {cfg.n_kv_heads, cfg.n_heads}))
+                                       {cfg.n_kv_heads, cfg.n_heads}, seq_shard=case["seq_shard"]))
         cache_misplaced = [k for k, v in _flat(cache).items()
                            if tuple(v.placements) != tuple(lay[k].placements)]
+        bdims = _batch_dims(model, max_len)
+        rows_of = ("/k", "/v", "/k_scale", "/v_scale")  # (..., B, T, H[, D])
+        seq_split = {k: any(p == Shard(bdims[k] + 1) for p in v.placements)
+                     for k, v in _cache_stacks(cache).items() if k.endswith(rows_of)}
         whole = {k: dist.gather(v, dst=0) for k, v in _cache_stacks(cache).items()}
         # K/V rows written from the same tokens in both runs; the other
         # states on the batch rows whose tokens agree at every step
-        rows = patches + args.prompt_len + MESH_SERVE_FORCED
+        rows = patches + args.prompt_len + case["forced"]
         same = np.all(res["tokens"] == want_tokens, axis=1)
         rel, cache_rel = [], {}
         if rank == 0:
             base = np.load(wd / "logits.npy", mmap_mode="r")
-            for i in range(1 + MESH_SERVE_FORCED):
+            for i in range(1 + case["forced"]):
                 w = np.asarray(base[i])
                 rel.append(float(np.abs(res["logits"][i].numpy() - w).max() / np.abs(w).max()))
             base_cache = torch.load(wd / "cache.pt")
-            bdims = _batch_dims(model, max_len)
             for k, v in whole.items():
                 w, g = base_cache[k].to(torch.float32), v.to(torch.float32)
                 bd = bdims[k]
-                if k.endswith(("/k", "/v")):  # (..., B, T, H, D)
+                if f"{k}_scale" in whole:  # the int8 cache as values, codes x scale
+                    w = w * base_cache[f"{k}_scale"].to(torch.float32)[..., None]
+                    g = g * whole[f"{k}_scale"].to(torch.float32)[..., None]
+                if k.endswith(rows_of):
                     w, g = w.narrow(bd + 1, 0, rows), g.narrow(bd + 1, 0, rows)
                 elif k != "memory":  # the memory is written by the prefill alone
                     keep = torch.as_tensor(np.nonzero(same)[0])
@@ -4125,9 +4202,11 @@ def mesh_families_worker(spec: dict, rank: int) -> dict:
                     decode(params, tok, cache)
             finally:
                 rsh._gather_local = gather_local
-        models[arch] = dict(
+        models[name] = dict(
             rank=rank, leaves=len(flat) + len(_flat(cache)), param_misplaced=param_misplaced,
-            cache_misplaced=cache_misplaced, tokens=res["tokens"].tolist(), rel=rel,
+            cache_misplaced=cache_misplaced, seq_split=seq_split,
+            cache_specs={k: str(tuple(v.placements)) for k, v in _cache_stacks(cache).items()},
+            tokens=res["tokens"].tolist(), rel=rel,
             cache_rel=cache_rel, state_rows=int(same.sum()),
             prefill_ms=res["prefill_s"] * 1e3, decode_ms=res["decode_s"] * 1e3 / (args.gen - 1),
             comm_decode={str(k): v for k, v in comm.get_comm_counts().items()},
@@ -4143,6 +4222,215 @@ def mesh_families_worker(spec: dict, rank: int) -> dict:
 def mesh_families_only(torch, np, dev) -> dict:
     """`[mesh-families]` alone."""
     return phase_mesh_families(torch, np, dev, card_line())
+
+
+def mesh_cache_only(torch, np, dev) -> dict:
+    """`[mesh-cache]` alone."""
+    return phase_mesh_families(torch, np, dev, card_line(), table="cache")
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry-run launcher on a fake process group, and its calibration
+# ---------------------------------------------------------------------------
+
+#: the production cells: each one `python -m repro_torch.launch.dryrun` at
+#: full width and depth on fake tensors over a fake group of 256 ranks
+#: ('single', (16, 16)) or 512 ('multi', (2, 16, 16)), with the 1- and
+#: 2-unit extrapolation: (arch, shape, variant, mesh, the status it must
+#: report). phi4-mini's 8 KV heads cannot take a 16-way 'model', so seqkv
+#: splits its cache's sequence; a full-attention arch at long_500k is the
+#: reference's skip.
+DRYRUN_CELLS = [
+    ("smollm-360m", "train_4k", "baseline", "single", "ok"),
+    ("smollm-360m", "train_4k", "tp_weights", "single", "ok"),
+    ("phi4-mini-3.8b", "decode_32k", "seqkv", "single", "ok"),
+    ("phi4-mini-3.8b", "decode_32k", "kvq8", "single", "ok"),
+    ("deepseek-v2-236b", "decode_32k", "baseline", "single", "ok"),
+    ("zamba2-1.2b", "long_500k", "baseline", "single", "ok"),
+    ("phi4-mini-3.8b", "long_500k", "baseline", "single", "skip"),
+    ("smollm-360m", "train_4k", "baseline", "multi", "ok"),
+]
+#: cells traced at once (at nice 10, on the host's cores, beside the other
+#: phases: the fake tensors allocate nothing on the card), each one's hard
+#: limit, and how long `[dryrun]` waits for the cells still running (on
+#: the H100 machine's host the slowest cell takes ~75 s, all 8 ~460 s in
+#: the background)
+DRYRUN_LANES, DRYRUN_TIMEOUT_S, DRYRUN_WAIT_S = 2, 300.0, 300.0
+#: the calibration cell: counted on fake tensors over a one-rank (1, 1)
+#: mesh at one layer unit, then run for real on the card (its cache is
+#: 128 x 32768 x 5 x 64 bfloat16 K and V, 5.4 GB)
+DRYRUN_CALIBRATION = ("smollm-360m", "decode_32k")
+#: `MemTracker`'s peak of the counted step (its inputs and temporaries)
+#: against the card's `max_memory_allocated` of the real one, less what
+#: was allocated before it but its inputs (cuBLAS's workspace, taken by a
+#: first step): the caching allocator rounds each block up to 512 bytes
+DRYRUN_PEAK_RTOL = 0.05
+
+
+def dryrun_dir() -> Path:
+    return ROOT / "build" / "dryrun"
+
+
+class DryrunCells:
+    """`DRYRUN_CELLS` traced in the background, `DRYRUN_LANES` at a time,
+    each a `python -m repro_torch.launch.dryrun` process (of the
+    `repro_torch` under `src`) killed at `DRYRUN_TIMEOUT_S`; any process
+    still running when this one exits is killed."""
+
+    def __init__(self, src: Path):
+        import atexit
+        import queue
+        import shutil
+        import threading
+
+        shutil.rmtree(dryrun_dir(), ignore_errors=True)
+        dryrun_dir().mkdir(parents=True)
+        self.src, self.results, self.procs, self.stopped = src, {}, [], False
+        self.t0 = time.perf_counter()
+        todo = queue.Queue()
+        for cell in DRYRUN_CELLS:
+            todo.put(cell)
+        self.lanes = [threading.Thread(target=self._lane, args=(todo,), daemon=True)
+                      for _ in range(DRYRUN_LANES)]
+        atexit.register(self.kill)
+        for t in self.lanes:
+            t.start()
+
+    def _lane(self, todo) -> None:
+        import queue
+
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(self.src.resolve())] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        while not self.stopped:
+            try:
+                cell = todo.get_nowait()
+            except queue.Empty:
+                return
+            arch, shape, variant, mesh, _ = cell
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--variant", variant, "--mesh", mesh, "--out", str(dryrun_dir())]
+            t = time.perf_counter()
+            proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    preexec_fn=lambda: os.nice(10))
+            self.procs.append(proc)
+            try:
+                out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            self.results[cell] = dict(rc=proc.returncode, s=time.perf_counter() - t,
+                                      tail=out[-1500:])
+
+    def kill(self) -> None:
+        self.stopped = True
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def join(self) -> dict:
+        """The finished cells' results, after waiting `DRYRUN_WAIT_S` at
+        most; the cells still running then are killed."""
+        deadline = time.perf_counter() + DRYRUN_WAIT_S
+        for t in self.lanes:
+            t.join(max(deadline - time.perf_counter(), 0.0))
+        self.kill()
+        return dict(self.results)
+
+
+def dryrun_calibration(torch, np, dev, card) -> dict:
+    """`[dryrun]` (b): `DRYRUN_CALIBRATION` through `lower_cell(units=1)`
+    on a one-rank (1, 1) mesh of the card (a one-rank gloo group in this
+    process, left at the end): counted on fake tensors, then the returned
+    step run for real on inputs drawn on the card from a generator seeded
+    0 (`dryrun.calibrate`). Its `FlopCounterMode` count must equal the
+    dry count, the real inputs' bytes `argument_bytes`, both exactly; the
+    `MemTracker` peak must lie within `DRYRUN_PEAK_RTOL` of the card's.
+    Prints the step's ms (CUDA events, median of 5) beside the roofline's
+    memory and compute times."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    free_card(torch)
+    store = torch.distributed.TCPStore("127.0.0.1", 0, 1, True)
+    torch.distributed.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        counted, info = dryrun.lower_cell(*DRYRUN_CALIBRATION, make_local_mesh(), units=1)
+        got = dryrun.calibrate(counted, info, torch.Generator(device=dev).manual_seed(0))
+    finally:
+        torch.distributed.destroy_process_group()
+        free_card(torch)
+    out = dict(cell=list(DRYRUN_CALIBRATION), units=1, mesh=[1, 1], **got,
+               bytes_accessed_dry=counted.bytes_accessed, trace_s=counted.seconds,
+               step_ms_median=statistics.median(got["step_ms"]),
+               t_memory_ms=counted.bytes_accessed / dryrun.HBM_BW * 1e3,
+               t_compute_ms=counted.flops / dryrun.PEAK_FLOPS * 1e3,
+               collectives=counted.collective_counts, card=card)
+    log("dryrun", json.dumps(out))
+    check(out["flops_card"] == out["flops_dry"],
+          f"the card's step counts {out['flops_card']} FLOPs, the dry run {out['flops_dry']}")
+    check(out["argument_bytes_card"] == out["argument_bytes_dry"],
+          f"the card's inputs hold {out['argument_bytes_card']} bytes, the dry run counts "
+          f"{out['argument_bytes_dry']}")
+    check(out["peak_rel"] <= DRYRUN_PEAK_RTOL,
+          f"MemTracker's peak {out['peak_bytes_dry']} is {out['peak_rel']:.3g} off the card's "
+          f"{out['peak_bytes_card']} (bound {DRYRUN_PEAK_RTOL})")
+    return out
+
+
+def phase_dryrun(torch, np, dev, card, cells: DryrunCells) -> dict:
+    """`[dryrun]`: (b) the calibration (`dryrun_calibration`), then (a) the
+    production cells traced in the background since `cells` started
+    (`DRYRUN_CELLS`): each must exit 0 and report its status (ok, or the
+    reference's SKIP(full-attn)); per cell the three roofline terms, the
+    dominant one, the useful-FLOPs ratio, the argument MB per rank, the
+    trace's seconds and the process's. No kernel of K1-K6 runs here."""
+    calibration = dryrun_calibration(torch, np, dev, card)
+    t = time.perf_counter()
+    results = cells.join()
+    failed, out = [], {}
+    for cell in DRYRUN_CELLS:
+        arch, shape, variant, mesh, want = cell
+        res = results.get(cell)
+        suffix = "" if variant == "baseline" else f"__{variant}"
+        path = dryrun_dir() / f"{arch}__{shape}__{mesh}{suffix}.json"
+        if res is None or res["rc"] != 0 or not path.exists():
+            failed.append(f"{arch} x {shape} x {variant} x {mesh}: "
+                          f"{'not run' if res is None else res['tail']}")
+            continue
+        rec = json.loads(path.read_text())
+        rl, mem = rec.get("roofline", {}), rec.get("memory", {})
+        line = dict(cell=f"{arch} x {shape} x {variant} x {mesh}", chips=rec["chips"],
+                    status=rec["status"], reason=rec.get("reason", rec.get("error")),
+                    t_compute_s=rl.get("t_compute_s"), t_memory_s=rl.get("t_memory_s"),
+                    t_collective_s=rl.get("t_collective_s"), dominant=rl.get("dominant"),
+                    useful_flops_ratio=rl.get("useful_flops_ratio"),
+                    argument_mb=mem.get("argument_bytes", 0) / 1e6,
+                    temp_mb=mem.get("temp_bytes", 0) / 1e6,
+                    collectives=rec.get("collective_counts"),
+                    trace_s=rec.get("compile_seconds"), process_s=res["s"])
+        out[line["cell"]] = line
+        log("dryrun", json.dumps(line))
+        if rec["status"] != want or (want == "skip" and rec.get("reason") != "SKIP(full-attn)"):
+            failed.append(f"{line['cell']}: {rec['status']} {line['reason']}, want {want}")
+    log("dryrun", json.dumps(dict(cells=len(DRYRUN_CELLS), lanes=DRYRUN_LANES,
+                                  background_s=time.perf_counter() - cells.t0,
+                                  waited_s=time.perf_counter() - t, card=card)))
+    check(not failed, "[dryrun] " + "; ".join(failed))
+    return dict(calibration=calibration, cells=out)
+
+
+def _src() -> Path:
+    """The src/ directory `repro_torch` was imported from (--src)."""
+    import repro_torch
+
+    return Path(repro_torch.__file__).resolve().parent.parent
+
+
+def dryrun_only(torch, np, dev) -> dict:
+    """`[dryrun]` alone."""
+    return phase_dryrun(torch, np, dev, card_line(), DryrunCells(_src()))
 
 
 # ---------------------------------------------------------------------------
@@ -4399,6 +4687,12 @@ def main() -> int:
                         help="only run the four-rank serving phase of the vision frontend, the "
                         "encoder-decoder, the hybrid and xLSTM under SERVE_RULES "
                         "(mesh_families_only)")
+    parser.add_argument("--mesh-cache", action="store_true",
+                        help="only run the four-rank serving phase of the int8 and the "
+                        "sequence-split KV caches under SERVE_RULES (mesh_cache_only)")
+    parser.add_argument("--dryrun", action="store_true",
+                        help="only run the dry-run launcher's production cells and its "
+                        "calibration on the card (dryrun_only)")
     parser.add_argument("--train-profile", action="store_true",
                         help="only trace full-width train steps (train_profile) and print "
                         "where their time goes as JSON")
@@ -4444,12 +4738,18 @@ def main() -> int:
                           (args.mesh_train, mesh_train_only),
                           (args.mesh_moe, mesh_moe_only),
                           (args.mesh_families, mesh_families_only),
+                          (args.mesh_cache, mesh_cache_only),
+                          (args.dryrun, dryrun_only),
                           (args.train_profile, train_profile)):
         if wanted:
             print(json.dumps({"src": str(args.src), **times(torch, np, dev)}), flush=True)
             print(card, flush=True)
             return 0
 
+    # the production cells of [dryrun] trace in the background meanwhile
+    cells = DryrunCells(_src())
+    # the production cells of [dryrun] trace in the background meanwhile
+    cells = DryrunCells(_src())
     marks = [time.perf_counter()]
 
     def lap(phases: str) -> None:
@@ -4495,6 +4795,10 @@ def main() -> int:
     lap("mesh-moe")
     phase_mesh_families(torch, np, dev, card)
     lap("mesh-families")
+    phase_mesh_families(torch, np, dev, card, table="cache")
+    lap("mesh-cache")
+    phase_dryrun(torch, np, dev, card, cells)
+    lap("dryrun")
     del atm, hurricane, by_mode
     launches.update(phase_decode(torch, np, dev, rows))
     phase_cpu_vs_card(torch, np, dev)

@@ -177,7 +177,8 @@ def main(argv=None) -> dict:
 
 
 def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULES,
-               teacher: np.ndarray | None = None, keep: bool = False) -> dict:
+               teacher: np.ndarray | None = None, keep: bool = False,
+               seq_shard: bool = False) -> dict:
     """A batch of `args.batch` prompts of `args.prompt_len` tokens (and,
     drawn after them from the same generator as in the reference, the
     vision stub's patch embeddings or the encoder-decoder's frames) through
@@ -189,7 +190,9 @@ def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULE
     `params` must be laid out on it (`sharding.place_params`); the prompts,
     patch embeddings and frames are laid out by `batch_shardings` and the
     cache by `cache_sharding`, and the
-    tokens are gathered to every rank at the end. `teacher` (B, n) feeds
+    tokens are gathered to every rank at the end; `seq_shard` splits
+    the cache along its sequence where no head dim can take 'model'
+    (`cache_sharding(seq_shard=True)`). `teacher` (B, n) feeds
     decode step i < n the token `teacher[:, i]` instead of the previous
     step's (the greedy tokens are still returned). `keep` adds the
     last-position logits of the prefill and of every step (``"logits"``,
@@ -234,7 +237,7 @@ def run_static(args, cfg, model, params, *, mesh=None, rules=sharding.SERVE_RULE
     if keep and args.sample:
         raise ValueError("run_static(keep=True) keeps greedy runs' logits only")
     with sharding.activate(mesh, rules) if mesh is not None else contextlib.nullcontext():
-        cache = model.init_cache(b, max_len)
+        cache = model.init_cache(b, max_len, seq_shard=seq_shard)
         _sync(dev)
         t0 = time.time()
         logits, cache = prefill(params, batch, cache)

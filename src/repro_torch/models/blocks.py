@@ -128,24 +128,17 @@ def apply_attn(
         start = torch.clamp(torch.remainder(pos, m_cap), max=m_cap - l)
         rows = start.long() + torch.arange(l, device=x.device)
         ck, cv = cache["k"], cache["v"]
-        if "k_scale" in cache and nn.is_sharded(q):
-            raise NotImplementedError(
-                "the int8 KV cache under a mesh: ROADMAP.md queue A, item 14d")
         if "k_scale" in cache:
             # int8 KV cache: per-(token, head) linear quantization (the
             # paper's Stage-II vector quantization applied to KV residency)
-            ks = torch.amax(torch.abs(k), dim=-1).to(torch.float32) / 127.0 + 1e-12
-            vs = torch.amax(torch.abs(v), dim=-1).to(torch.float32) / 127.0 + 1e-12
-            kq = torch.round(k.to(torch.float32) / ks[..., None]).to(torch.int8)
-            vq = torch.round(v.to(torch.float32) / vs[..., None]).to(torch.int8)
+            kq, ks = _quantize(k)
+            vq, vs = _quantize(v)
             cks, cvs = cache["k_scale"], cache["v_scale"]
-            ck.index_copy_(1, rows, kq)
-            cv.index_copy_(1, rows, vq)
-            cks.index_copy_(1, rows, ks)
-            cvs.index_copy_(1, rows, vs)
+            for dst, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
+                nn.write_rows(dst, rows, new)
             new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs, "len": pos + l}
-            k_all = ck.to(q.dtype) * cks[..., None].to(q.dtype)
-            v_all = cv.to(q.dtype) * cvs[..., None].to(q.dtype)
+            k_all = _dequantize(ck, cks, q.dtype)
+            v_all = _dequantize(cv, cvs, q.dtype)
         else:
             nn.write_rows(ck, rows, k.to(ck.dtype))
             nn.write_rows(cv, rows, v.to(cv.dtype))
@@ -159,6 +152,34 @@ def apply_attn(
         out = attention(q, k, v, causal=causal, window=window)
     out = out.reshape(b, l, h * dh)
     return dense(out, p["wo"]), new_cache
+
+
+def _quantize(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes, float32 scales) of keys or values (B, L, H, Dh): one
+    scale per (token, head), max|t| over Dh / 127. Under a mesh each rank
+    quantizes its own rows and heads (no rule splits Dh): the codes are
+    laid out as `t`, the scales as `t` without its last dim."""
+    def quantize(x):
+        scale = torch.amax(torch.abs(x), dim=-1).to(torch.float32) / 127.0 + 1e-12
+        return torch.round(x.to(torch.float32) / scale[..., None]).to(torch.int8), scale
+
+    if not nn.is_sharded(t):
+        return quantize(t)
+    codes, scale = quantize(t.to_local())
+    return nn._like(codes, t, t.shape), nn._like(scale, t, t.shape[:-1])
+
+
+def _dequantize(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """codes (B, M, H, Dh) times their scales (B, M, H), in `dtype`. Under a
+    mesh the scales are laid out as the codes (`cache_sharding` places both
+    by the same sizes) and each rank scales its own shard."""
+    if not nn.is_sharded(codes):
+        return codes.to(dtype) * scale[..., None].to(dtype)
+    from ..runtime import sharding as rsh
+
+    scale = rsh.redistribute(scale, tuple(codes.placements))
+    local = codes.to_local().to(dtype) * scale.to_local()[..., None].to(dtype)
+    return nn._like(local, codes, codes.shape)
 
 
 def attn_cache_desc(cfg: ModelConfig, batch: int, max_len: int,
@@ -329,13 +350,62 @@ def _absorbed_sharded(q_nope, q_rope, c_all, kr_all, wkv_b, pos, l: int, cfg: Mo
     h_loc = q_nope.to_local().shape[2]
     wl = wl.reshape(m.kv_lora, h_loc, m.qk_nope + m.v_head).to(q_nope.dtype)
 
+    shape = tuple(q_nope.shape[:3]) + (m.v_head,)
+    seq = nn._split_dims(c_all, 1)
+    if seq:
+        out = _absorbed_split_k(q_nope, q_rope, c_all, kr_all, wl, pos, l, cfg, seq)
+        return nn._like(out.contiguous(), q_nope, shape)
+
     def latent(t):
         return t.to_local(grad_placements=tuple(Partial() if j in heads else pl
                                                 for j, pl in enumerate(t.placements)))
 
     out = _absorbed(q_nope.to_local(), q_rope.to_local(), latent(c_all), latent(kr_all), wl,
                     pos, l, cfg)
-    return nn._like(out.contiguous(), q_nope, tuple(q_nope.shape[:3]) + (m.v_head,))
+    return nn._like(out.contiguous(), q_nope, shape)
+
+
+def _absorbed_split_k(q_nope, q_rope, c_all, kr_all, wl, pos, l: int, cfg: ModelConfig, seq):
+    """`_absorbed` against a latent split along its rows over the mesh dims
+    `seq` (a cache laid out by `cache_sharding(seq_shard=True)`, or one
+    whose length matched a head count), serving only: each rank absorbs
+    W_uk into its own heads' queries, gathers the absorbed queries and the
+    rope queries over the heads' split in `seq`, scores its band of latent
+    rows (masked in global positions), and the bands' partial softmaxes
+    are combined over `seq` (`nn.combine_split_k`); each rank then applies
+    W_uv to its own heads' context. The local context (B, L, H_loc,
+    v_head)."""
+    from torch.distributed.tensor import Replicate
+
+    from ..runtime import sharding as rsh
+
+    m: MLACfg = cfg.mla
+    dt = q_nope.dtype
+    w_uk, w_uv = wl[..., : m.qk_nope], wl[..., m.qk_nope:]
+    q_lat = nn._like(torch.einsum("blhn,rhn->blhr", q_nope.to_local(), w_uk).contiguous(),
+                     q_nope, tuple(q_nope.shape[:3]) + (m.kv_lora,))
+    whole = tuple(Replicate() if j in seq else p for j, p in enumerate(q_nope.placements))
+    q_lat, q_rope_g = rsh.redistribute(q_lat, whole), rsh.redistribute(q_rope, whole)
+    c_loc, kr_loc = c_all.to_local(), kr_all.to_local()
+    k0 = nn._box(c_all)[0][1]
+    scale = 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
+    logits = (
+        torch.einsum("blhr,bmr->bhlm", q_lat.to_local(), c_loc)
+        + torch.einsum("blhr,bmr->bhlm", q_rope_g.to_local(), kr_loc)
+    ).to(torch.float32) * scale
+    dev = c_loc.device
+    qpos = torch.arange(l, device=dev)[:, None] + pos
+    kpos = k0 + torch.arange(c_loc.shape[1], device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos < pos + l)
+    logits = torch.where(mask[None, None], logits, -1e30)
+    top = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - top[..., None])
+    ctx = torch.einsum("bhlm,bmr->blhr", p.to(dt), c_loc).to(torch.float32)
+    ctx = nn.combine_split_k(ctx, top, p.sum(-1), c_all.device_mesh, seq).to(dt)
+    # this rank's heads of the gathered context
+    h0, g0 = nn._box(q_nope)[0][2], nn._box(q_lat)[0][2]
+    ctx = ctx[:, :, h0 - g0:h0 - g0 + q_nope.to_local().shape[2]]
+    return torch.einsum("blhr,rhv->blhv", ctx, w_uv)
 
 
 def _with_rope_key(k_nope, k_rope):

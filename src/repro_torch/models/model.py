@@ -171,10 +171,11 @@ class BaseLM:
         return loss, {"loss": loss, "tokens": torch.sum(mask)}
 
     # --- cache -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, *, seq_shard: bool = False):
         """Zeros: plain tensors on the model's device, or under a mesh
         DTensors laid out by `cache_sharding` (batch over the data dims,
-        the first head-sized dim after it over 'model')."""
+        the first head-sized dim after it over 'model'; with `seq_shard`,
+        where no head dim can take 'model', the sequence over it)."""
         layout = nn.shard_fn()
         if layout is None:
             return _zeros_cache(self.cache_desc(batch, max_len), self.device)
@@ -184,7 +185,7 @@ class BaseLM:
         desc = self.cache_desc(batch, max_len)
         cfg = self.cfg
         shardings = sharding.cache_sharding(desc, layout.mesh, batch,
-                                            {cfg.n_kv_heads, cfg.n_heads})
+                                            {cfg.n_kv_heads, cfg.n_heads}, seq_shard=seq_shard)
         return nn.tree_map(lambda s, sh: sharding.zeros(s.shape, s.dtype, sh), desc, shardings)
 
     def decode_step(self, params, tokens, cache):
@@ -376,8 +377,8 @@ class XLSTMLM(BaseLM):
             new_cache = {"pos": cache["pos"] + x.shape[1], "groups": cache["groups"]}
         return self._logits(params, x), new_cache
 
-    def init_cache(self, batch: int, max_len: int):
-        cache = super().init_cache(batch, max_len)
+    def init_cache(self, batch: int, max_len: int, *, seq_shard: bool = False):
+        cache = super().init_cache(batch, max_len, seq_shard=seq_shard)
         # the mLSTM stabilizer starts at -1e30, as the chunked path's (each
         # rank fills its shard)
         m = cache["groups"]["m"]["m"]

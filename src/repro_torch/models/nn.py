@@ -274,19 +274,42 @@ def local_value(x):
 
 def write_rows(cache: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> None:
     """``cache[:, rows] = new`` in place (`index_copy_` on dim 1). A DTensor
-    cache takes `new` in its own layout and each rank writes its shard."""
+    cache takes `new` in its own layout and each rank writes its shard;
+    where the cache's dim 1 (its sequence) is split, `new` is whole along
+    it and each rank writes the rows of `rows` that fall in its band
+    (`_write_band`)."""
     if not is_sharded(cache):
         cache.index_copy_(1, rows, new)
         return
-    if _split_dims(cache, 1):
-        raise NotImplementedError(
-            "a cache split along its sequence dim (cache_sharding(seq_shard=True), or a "
-            "sequence as long as a head count) takes no writes yet: ROADMAP.md queue A, "
-            "item 14d")
+    from torch.distributed.tensor import Replicate
+
     from ..runtime import sharding as _sh
 
-    new = _sh.redistribute(new, tuple(cache.placements))
-    cache.to_local().index_copy_(1, rows, new.to_local())
+    band = _split_dims(cache, 1)
+    want = tuple(Replicate() if j in band else p for j, p in enumerate(cache.placements))
+    new = _sh.redistribute(new, want).to_local()
+    if not band:
+        cache.to_local().index_copy_(1, rows, new)
+        return
+    _write_band(cache.to_local(), rows - _box(cache)[0][1], new)
+
+
+def _write_band(local: torch.Tensor, j: torch.Tensor, new: torch.Tensor) -> None:
+    """``local[:, j[i]] = new[:, i]`` for the i whose row j[i] lies in the
+    band [0, local.shape[1]), the others dropped, with no data-dependent
+    shape: each dropped row is sent to the band's first written row with
+    that row's value (or, when none is written, to row 0 with its own
+    value), so every duplicate index of the `index_copy_` carries the same
+    value."""
+    nb = local.shape[1]
+    hit = (j >= 0) & (j < nb)
+    first = torch.argmax(hit.to(torch.int32)).reshape(1)  # the first row in the band, 0 if none
+    some = hit.any()
+    target = torch.where(hit, j, torch.where(some, j.index_select(0, first), 0))
+    zero = torch.zeros(1, dtype=torch.long, device=local.device)
+    fill = torch.where(some, new.index_select(1, first), local.index_select(1, zero))
+    keep = hit.view((1, -1) + (1,) * (new.ndim - 2))
+    local.index_copy_(1, target, torch.where(keep, new, fill))
 
 
 def write_state(cache: torch.Tensor, new: torch.Tensor) -> None:
@@ -700,7 +723,13 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
     """`attention` on DTensors: k and v are laid out with q's batch split
     and, where their heads divide, its head split; each rank attends its
     own rows and query heads against the KV heads those need (the GQA
-    group's slice of the local K/V)."""
+    group's slice of the local K/V).
+
+    K and V split along their sequence (a cache laid out by
+    `cache_sharding(seq_shard=True)`, or one whose length matched a head
+    count) stay split: the queries are gathered over those mesh dims, each
+    rank scores its band of keys and the bands' partial softmaxes are
+    combined over them (`_attention_split_k`)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     if _is_vector(q_offset) or _is_vector(kv_len):
@@ -710,14 +739,20 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
     mesh = q.device_mesh
     if not all(p == Shard(0) or p == Shard(2) or isinstance(p, Replicate) for p in q.placements):
         raise ValueError(f"attention splits queries by batch and heads only, got {q.placements}")
+    from ..runtime import sharding as _sh
+
+    seq = _split_dims(k, 1)
+    q_placements = tuple(q.placements)
+    if seq:
+        q = _sh.redistribute(q, tuple(Replicate() if j in seq else p
+                                      for j, p in enumerate(q.placements)))
     hq, hkv = q.shape[2], k.shape[2]
     rep = hq // hkv
     head_split = _split_dims(q, 2)
     kv_heads_split = hkv % math.prod(mesh.size(j) for j in head_split) == 0
-    want = tuple(p if (p == Shard(0) or (p == Shard(2) and kv_heads_split)) else Replicate()
-                 for p in q.placements)
-    from ..runtime import sharding as _sh
-
+    want = tuple(Shard(1) if j in seq else
+                 p if (p == Shard(0) or (p == Shard(2) and kv_heads_split)) else Replicate()
+                 for j, p in enumerate(q.placements))
     k, v = _sh.redistribute(k, want), _sh.redistribute(v, want)
     # a K/V head that several ranks' query heads read gets each rank's part
     # of its gradient: a pending sum over the mesh dims that split q only
@@ -732,9 +767,86 @@ def _attention_sharded(q, k, v, causal, q_offset, window, kv_len, q_chunk):
         heads = slice(h0 // rep - g0, h0 // rep - g0 + 1)  # one group's part
     else:  # the shard straddles groups: one KV head per query head
         heads = torch.arange(h0, h0 + hq_loc, device=kl.device) // rep - g0
-    out = attention(ql, kl[:, :, heads], vl[:, :, heads], causal, q_offset, window,
-                    kv_len, q_chunk)
-    return _like(out.contiguous(), q, (q.shape[0], q.shape[1], hq, v.shape[-1]))
+    shape = (q.shape[0], q.shape[1], hq, v.shape[-1])
+    if not seq:
+        out = attention(ql, kl[:, :, heads], vl[:, :, heads], causal, q_offset, window,
+                        kv_len, q_chunk)
+        return _like(out.contiguous(), q, shape)
+    out = _attention_split_k(ql, kl[:, :, heads], vl[:, :, heads], causal, q_offset, window,
+                             kv_len, q_chunk, _box(k)[0][1], mesh, seq)
+    return _sh.redistribute(_like(out.contiguous(), q, shape), q_placements)
+
+
+def _attn_partial(qr, k, v, causal, q_offset, window, kv_len, dh: int, k0: int):
+    """`_attn_direct` on a band of keys whose first is global position
+    `k0`, before normalization: (the weighted values (b, l, hkv, rep, dv)
+    in float32, each row's float32 max over the band (b, hkv, rep, l), the
+    sum of its exponentials). The weights enter the value product in the
+    values' dtype, as the reference's softmax weights do."""
+    lq, lk = qr.shape[1], k.shape[1]
+    dev = qr.device
+    logits = torch.einsum("blhrd,bmhd->bhrlm", qr, k).to(torch.float32) / math.sqrt(dh)
+    qpos = torch.arange(lq, device=dev)[:, None] + q_offset
+    kpos = k0 + torch.arange(lk, device=dev)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len)
+    logits = torch.where(mask[None, None, None], logits, -1e30)
+    top = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - top[..., None])
+    out = torch.einsum("bhrlm,bmhd->blhrd", p.to(v.dtype), v).to(torch.float32)
+    return out, top, p.sum(-1)
+
+
+def combine_split_k(out, top, total, mesh, dims) -> torch.Tensor:
+    """The softmax-weighted values of the whole key range from each rank's
+    partial over its band (the split-K combine): `out` (b, l, h..., d) the
+    band's unnormalized weighted values, `top` and `total` (b, h..., l)
+    its rows' float32 max and sum of exponentials. The maxima are combined
+    by an all-reduce max over the mesh dims `dims`, then the rescaled
+    values and sums by one all-reduce sum; float32 (b, l, h..., d)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..runtime import sharding as _sh
+
+    def over(x, op):
+        pend = tuple(Partial(op) if j in dims else Replicate() for j in range(mesh.ndim))
+        return reduce_partial(_sh.from_local(x.contiguous(), _sh.NamedSharding(mesh, pend),
+                                             tuple(x.shape))).to_local()
+
+    whole = over(top, "max")
+    c = torch.exp(top - whole)  # 0 for a band with no key left unmasked
+    rows = tuple(range(1, top.ndim - 1))
+    cl = c.permute(0, top.ndim - 1, *rows)[..., None]  # (b, l, h..., 1)
+    num = out * cl
+    both = over(torch.cat([num.reshape(-1), (total * c).reshape(-1)]), "sum")
+    num, den = both[:num.numel()].reshape(num.shape), both[num.numel():].reshape(c.shape)
+    return num / den.permute(0, top.ndim - 1, *rows)[..., None]
+
+
+def _attention_split_k(ql, kl, vl, causal, q_offset, window, kv_len, q_chunk, k0: int, mesh,
+                       dims) -> torch.Tensor:
+    """Attention of local queries (b, lq, hq, dh) over this rank's band of
+    keys and values (b, lk, hkv, ·), the band starting at global position
+    `k0`, the bands split over the mesh dims `dims`: each chunk of queries
+    (`q_chunk`, default `ATTN_Q_CHUNK`) takes its partial softmax on the
+    band (`_attn_partial`) and the split-K combine (`combine_split_k`).
+    Every rank of `dims` ends with the same (b, lq, hq, dv) in q's dtype."""
+    b, lq, hq, dh = ql.shape
+    hkv = kl.shape[2]
+    qr = ql.reshape(b, lq, hkv, hq // hkv, dh)
+    qc = q_chunk or ATTN_Q_CHUNK
+    outs = []
+    for s in range(0, lq, qc):
+        part = _attn_partial(qr[:, s:s + qc], kl, vl, causal, q_offset + s, window, kv_len, dh,
+                             k0)
+        outs.append(combine_split_k(*part, mesh, dims))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(b, lq, hq, vl.shape[-1]).to(ql.dtype)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -73,13 +73,35 @@ def _names(mesh) -> tuple[str, ...]:
     return tuple(mesh.mesh_dim_names or ())
 
 
+#: id(mesh) -> (mesh, shape, {rank: coords}, {coords: rank})
+_MESHES: dict[int, tuple] = {}
+
+
+def _layout_of_mesh(mesh) -> tuple:
+    """(shape, {rank: coords}, {coords: rank}) of `mesh`, read once a mesh
+    from its rank tensor with every dispatch mode off (a dry run traces
+    under `FakeTensorMode`, which would turn the tensor DeviceMesh builds
+    for `mesh.mesh` into a fake one)."""
+    hit = _MESHES.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            t = mesh.mesh
+            shape, flat = tuple(int(s) for s in t.shape), t.reshape(-1).tolist()
+        ranks = np.array(flat, dtype=np.int64).reshape(shape)
+        by_rank = {int(r): tuple(int(c) for c in idx) for idx, r in np.ndenumerate(ranks)}
+        hit = _MESHES[id(mesh)] = (mesh, shape, by_rank, {c: r for r, c in by_rank.items()})
+    return hit[1:]
+
+
 def axis_size(mesh, name: str) -> int:
     """The size of the mesh dim called `name`."""
-    return int(mesh.mesh.shape[_names(mesh).index(name)])
+    return _layout_of_mesh(mesh)[0][_names(mesh).index(name)]
 
 
 def mesh_shape(mesh) -> dict[str, int]:
-    return {n: int(s) for n, s in zip(_names(mesh), mesh.mesh.shape)}
+    return dict(zip(_names(mesh), _layout_of_mesh(mesh)[0]))
 
 
 def mesh_device(mesh) -> torch.device:
@@ -361,37 +383,55 @@ class _GatherSplit(torch.autograd.Function):
     rank's chunk of the gradient, summed over the dim's group first where
     the gradient is a pending sum there (a reduce-scatter,
     `_reduce_scatter_local`), so FSDP's gathered weights and the gathered
-    activations of `split_heads` carry their gradients."""
+    activations of `split_heads` carry their gradients.
+
+    A dim split over several mesh dims (the batch over ('pod', 'data'))
+    is split by each in mesh-dim order, each chunking the chunk before it;
+    ending the split over `j` ends it over the later ones too, gathered the
+    last first (as `gather_dim` does), and the backward scatters them back
+    the first first. Earlier splits stay."""
 
     @staticmethod
     def forward(ctx, x, j: int):
         from torch.distributed.tensor import Replicate, Shard
 
         mesh, d = x.device_mesh, x.placements[j].dim
-        if any(isinstance(p, Shard) and p.dim == d for i, p in enumerate(x.placements) if i != j):
-            raise NotImplementedError(f"dim {d} split over two mesh dims: {x.placements}")
-        ctx.j, ctx.d = j, d
-        whole = _gather_local(x.to_local(), mesh, j, d, int(x.shape[d]))
-        gathered = tuple(Replicate() if i == j else p for i, p in enumerate(x.placements))
-        return from_local(whole, NamedSharding(mesh, gathered), x.shape)
+        split = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
+        extent = int(x.shape[d])
+        for i in split:  # the extent each split cuts, as `shard_box` cuts it
+            if i == j:
+                break
+            extent = _chunk(extent, mesh.size(i), mesh.get_local_rank(i))[1]
+        dims, extents = [i for i in split if i >= j], []
+        for i in dims:
+            extents.append(extent)
+            extent = _chunk(extent, mesh.size(i), mesh.get_local_rank(i))[1]
+        local = x.to_local()
+        for i, e in zip(reversed(dims), reversed(extents)):
+            local = _gather_local(local, mesh, i, d, e)
+        ctx.dims, ctx.d = dims, d
+        gathered = tuple(Replicate() if i in dims else p for i, p in enumerate(x.placements))
+        return from_local(local, NamedSharding(mesh, gathered), x.shape)
 
     @staticmethod
     def backward(ctx, grad):
         from torch.distributed.tensor import Replicate, Shard
 
-        j, d = ctx.j, ctx.d
-        mesh, p = grad.device_mesh, grad.placements[j]
-        if any(isinstance(q, Shard) and q.dim == d for q in grad.placements):
+        dims, d = ctx.dims, ctx.d
+        mesh = grad.device_mesh
+        if any(isinstance(grad.placements[i], Shard) for i in dims):
             raise NotImplementedError(f"a gradient split along the gathered dim: {grad.placements}")
         local = grad.to_local()
-        if p.is_partial():
-            local = _reduce_scatter_local(local, mesh, j, d)
-        elif isinstance(p, Replicate):  # every rank holds the whole gradient
-            start, length = _chunk(int(grad.shape[d]), mesh.size(j), mesh.get_local_rank(j))
-            local = local.narrow(d, start, length).contiguous()
-        else:
-            raise NotImplementedError(f"a gradient laid out {grad.placements} over mesh dim {j}")
-        placements = tuple(Shard(d) if i == j else q for i, q in enumerate(grad.placements))
+        for i in dims:
+            p = grad.placements[i]
+            if p.is_partial():
+                local = _reduce_scatter_local(local, mesh, i, d)
+            elif isinstance(p, Replicate):  # every rank holds the whole gradient
+                start, length = _chunk(int(local.shape[d]), mesh.size(i), mesh.get_local_rank(i))
+                local = local.narrow(d, start, length).contiguous()
+            else:
+                raise NotImplementedError(f"a gradient laid out {grad.placements} over mesh dim {i}")
+        placements = tuple(Shard(d) if i in dims else q for i, q in enumerate(grad.placements))
         return from_local(local, NamedSharding(mesh, placements), grad.shape), None
 
 
@@ -410,7 +450,8 @@ def redistribute(x: Any, placements: tuple) -> Any:
     from torch.distributed.tensor import Replicate, Shard
 
     placements = tuple(placements)
-    for j, (c, t) in enumerate(zip(x.placements, placements)):
+    for j, t in enumerate(placements):
+        c = x.placements[j]  # a gather may end later mesh dims' splits too
         if isinstance(c, Shard) and c != t:
             x = _gather_split(x, j)
     summed = tuple(Replicate() if c.is_partial() and c != t else c
@@ -523,12 +564,11 @@ def spec_entries(x: Any) -> tuple:
 
 
 def _coords(mesh) -> dict[int, tuple[int, ...]]:
-    ranks = mesh.mesh.cpu().numpy()
-    return {int(r): tuple(int(c) for c in idx) for idx, r in np.ndenumerate(ranks)}
+    return _layout_of_mesh(mesh)[1]
 
 
 def rank_at(mesh, coords: tuple[int, ...]) -> int:
-    return int(mesh.mesh[tuple(coords)])
+    return _layout_of_mesh(mesh)[2][tuple(int(c) for c in coords)]
 
 
 def neighbors(mesh, name: str, rank: int) -> tuple[int | None, int | None]:
@@ -536,7 +576,7 @@ def neighbors(mesh, name: str, rank: int) -> tuple[int | None, int | None]:
     either end)."""
     ax = _names(mesh).index(name)
     c = list(_coords(mesh)[rank])
-    n = int(mesh.mesh.shape[ax])
+    n = _layout_of_mesh(mesh)[0][ax]
     prev = nxt = None
     if c[ax] > 0:
         prev = rank_at(mesh, tuple(c[:ax] + [c[ax] - 1] + c[ax + 1 :]))
@@ -551,14 +591,14 @@ def shard_box(mesh, placements, shape: tuple[int, ...], rank: int) -> tuple[tupl
     ceil-sized chunks (torch's chunking; the last ones may be short)."""
     from torch.distributed.tensor import Shard
 
-    coords = _coords(mesh)[rank]
+    sizes, coords = _layout_of_mesh(mesh)[0], _coords(mesh)[rank]
     start = [0] * len(shape)
     stop = [int(s) for s in shape]
     for i, p in enumerate(placements):
         if not isinstance(p, Shard):
             continue
         d = int(p.dim) % max(len(shape), 1)
-        n = int(mesh.mesh.shape[i])
+        n = sizes[i]
         extent = stop[d] - start[d]
         chunk = -(-extent // n)
         a = start[d] + min(coords[i] * chunk, extent)

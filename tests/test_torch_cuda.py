@@ -1296,3 +1296,29 @@ def test_mesh_moe_mla_train_step_two_ranks_on_card(cuda_device, tmp_path, mesh):
         assert p["metrics"]["grad_norm"] <= 1e-4 and p["metrics"]["wire_bits_per_value"] <= 1e-3
         for k, (share, most) in p["params"].items():
             assert share <= 5e-3 and most <= 2.0, (k, share, most)
+
+
+def test_dryrun_calibration_on_card(cuda_device, monkeypatch):
+    """`chip_smoke.py`'s `[dryrun]` calibration at a reduced size: the
+    dry-run launcher's smollm-360m decode cell at one layer unit, its
+    shape narrowed to a batch of 8 against a 1024-row cache, counted on
+    fake tensors over a one-rank (1, 1) mesh of the card (a one-rank gloo
+    group), then its step run for real on drawn inputs
+    (`dryrun.calibrate`): the real run's `FlopCounterMode` count and its
+    inputs' bytes equal the dry run's exactly, and `MemTracker`'s peak
+    (inputs and temporaries) lies within 5% of the card's."""
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_local_mesh
+
+    monkeypatch.setitem(shapes.SHAPES, "decode_32k", dict(kind="decode", seq=1024, batch=8))
+    store = torch.distributed.TCPStore("127.0.0.1", 0, 1, True)
+    torch.distributed.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        counted, info = dryrun.lower_cell("smollm-360m", "decode_32k", make_local_mesh(), units=1)
+        got = dryrun.calibrate(counted, info, torch.Generator(device=cuda_device).manual_seed(0),
+                               reps=1)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got["flops_card"] == got["flops_dry"] > 0
+    assert got["argument_bytes_card"] == got["argument_bytes_dry"]
+    assert got["peak_rel"] <= 0.05, got

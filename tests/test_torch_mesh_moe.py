@@ -32,7 +32,8 @@ carried to both packages.
   reference's step, three chained compressed steps, the collectives
   DTensor plans itself, and `launch.train.run(mesh=)` for deepseek.
 * Layouts: `cache_sharding` of these caches against the reference's, and
-  the cache layout that still raises under a mesh (a sequence split).
+  deepseek's decode into a latent cache split along its sequence (its
+  `max_len` 4 is a head count) against the reference's.
 
 Tolerances are those of tests/test_torch_mesh.py (serving) and
 tests/test_torch_mesh_train.py (training), with two more rules from
@@ -109,6 +110,10 @@ LAUNCH = ["--arch", DEEPSEEK, "--device", "cpu", "--smoke", "--n-layers", "2", "
           "--batch", "4", "--lr", "1e-3", "--log-every", "100", "--steps", "2", "--ckpt-every",
           "2", "--compress-grads"]
 RESUME_STEPS = 3
+#: deepseek's decode into a latent cache of `max_len` 4, a head count: its
+#: sequence takes 'model' by size matching (a prefill of 2, one decode step)
+LATENT = dict(name="deepseek-latent-b2", arch=DEEPSEEK, dtype="float32", batch=2, prompt_len=2,
+              gen=2, variant="baseline", weights="weights-{arch}.npz")
 FORWARD_F32, DECODE_F32, BF16_FLOOR = 1e-5, 1e-3, 2e-2
 BF16_ULP = 2.0 ** -7
 LOSS_RTOL, F32_ATOL, F32_RTOL = 1e-5, 1e-5, 1e-4
@@ -203,34 +208,34 @@ def _placed(flat, model_desc, rules, mesh):
     return jax.tree_util.tree_map(jax.device_put, params, shard)
 
 
-def _r_serve(arch, dtype, batch, flat, teacher, mesh):
-    """The reference's prefill and teacher-forced decode steps and its
-    forward without a cache (last-position logits per step, the forward's
-    logits), and under a mesh the param and cache specs."""
+def _r_serve(arch, dtype, batch, flat, teacher, mesh, prompt=PROMPT, gen=GEN, forward=True):
+    """The reference's prefill and teacher-forced decode steps and (with
+    `forward`) its forward without a cache (last-position logits per step,
+    the forward's logits), and under a mesh the param and cache specs."""
     cfg = _r_cfg(arch, dtype=dtype)
     model = r_build_model(cfg)
     params = _placed(flat, model.desc(), r_sh.SERVE_RULES, mesh)
-    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (batch, PROMPT)).astype(np.int32)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (batch, prompt)).astype(np.int32)
     prefill = jax.jit(r_steps.make_prefill_step(model))
     decode = jax.jit(lambda p, t, c: model.forward(p, {"tokens": t}, cache=c))
-    forward = jax.jit(lambda p, t: model.forward(p, {"tokens": t})[0])
+    uncached = jax.jit(lambda p, t: model.forward(p, {"tokens": t})[0])
 
     def body():
-        cache = model.init_cache(batch, PROMPT + GEN)
+        cache = model.init_cache(batch, prompt + gen)
         logits, cache = prefill(params, {"tokens": prompts}, cache)
         out = [np.asarray(logits[:, -1], np.float32)]
-        for i in range(GEN - 1):
+        for i in range(gen - 1):
             lg, cache = decode(params, teacher[:batch, i:i + 1], cache)
             out.append(np.asarray(lg[:, -1], np.float32))
         # the forward without a cache is held at float32 only
-        whole = forward(params, prompts) if dtype == "float32" else None
+        whole = uncached(params, prompts) if dtype == "float32" and forward else None
         return out, None if whole is None else np.asarray(whole, np.float32)
 
     if mesh is None:
         return body(), None
     with r_sh.activate(mesh, r_sh.SERVE_RULES):
         runs = body()
-    desc, cdesc = model.desc(), model.cache_desc(batch, PROMPT + GEN)
+    desc, cdesc = model.desc(), model.cache_desc(batch, prompt + gen)
     pspec = r_sh.tree_shardings(r_nn.axes_tree(desc), r_sh.SERVE_RULES, mesh, r_nn.abstract_tree(desc))
     cspec = r_sh.cache_sharding(cdesc, mesh, batch, {cfg.n_kv_heads, cfg.n_heads})
     abstract = _named(r_nn.abstract_tree(desc))
@@ -327,8 +332,8 @@ def results(tmp_path_factory, emulated_devices):
         for name, flat in weights.items():
             np.savez(wd / name, **flat)
         np.save(wd / "teacher.npy", teacher)
-        serve_args = dict(mesh=list(shape), cases=SERVE_CASES, prompt_len=PROMPT, gen=GEN,
-                          moe_blocks=MOE_BLOCKS, refused=[[DEEPSEEK, 2, 2, 2]])
+        serve_args = dict(mesh=list(shape), cases=SERVE_CASES + [LATENT], prompt_len=PROMPT,
+                          gen=GEN, moe_blocks=MOE_BLOCKS)
         train_args = dict(mesh=list(shape), cases=TRAIN_CASES[shape], layers=LAYERS, seq=SEQ,
                           batch=BATCH, steps=STEPS, eb_rel=EB_REL, opt=OPT,
                           weights_file="train-{arch}.npz",
@@ -357,6 +362,11 @@ def results(tmp_path_factory, emulated_devices):
         for shape in MESHES:
             ref[shape, (arch, dtype, batch)] = _r_serve(
                 arch, dtype, batch, flat, teacher, _r_mesh(emulated_devices, shape))
+    for shape in MESHES:
+        ref[shape, LATENT["name"]] = _r_serve(
+            DEEPSEEK, LATENT["dtype"], LATENT["batch"], weights[f"weights-{DEEPSEEK}.npz"],
+            teacher, _r_mesh(emulated_devices, shape), LATENT["prompt_len"], LATENT["gen"],
+            forward=False)
     for case in MOE_BLOCKS:
         for shape in MESHES:
             ref[shape, case["name"]] = _r_block(case, weights[f"moe-{case['name']}.npz"],
@@ -719,11 +729,19 @@ def test_cache_layout_matches_reference(emulated_devices, name):
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_write_into_a_sequence_split_cache_names_its_item(results, shape):
-    """deepseek's latent cache with `max_len` 4, a head count: its sequence
-    takes 'model', which the port cannot write yet (item 14d)."""
-    for p in results[0][shape][0]:
-        msg = p["refused"][DEEPSEEK]
-        assert msg is not None and "item 14d" in msg, msg
+    """A write into a cache split along its sequence, and attention across
+    its bands: deepseek's latent cache with `max_len` 4, a head count, whose
+    sequence takes 'model' by size matching. The prefill's and the decode
+    step's logits are the reference's (float32, `DECODE_F32`), its specs the
+    reference's `cache_sharding`."""
+    jobs, ref = results[:2]
+    got = jobs[shape][1][LATENT["name"]]
+    (steps, _), (_, cspec) = ref[shape, LATENT["name"]]
+    assert got["cache_specs"]["blocks/ckv"] == cspec["blocks/ckv"] == [None, "data", "model", None]
+    assert got["cache_specs"]["dense_blocks/krope"][2] == "model"
+    assert len(got["logits"]) == len(steps) == LATENT["gen"]
+    for i, (g, w) in enumerate(zip(got["logits"], steps)):
+        assert _rel(g, w) <= DECODE_F32, (i, _rel(g, w))
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in MOE_BLOCKS])

@@ -344,7 +344,9 @@ def test_every_rank_reports_the_same_losses(results, shape):
 def test_gather_backward_is_the_plain_gradients_box(results, shape):
     """The gradient through the host-staged gather, replicated (each rank
     keeps its rows) and pending (a reduce-scatter over uneven shards),
-    equals each rank's box of the plain gradient (float64: 1e-12)."""
+    equals each rank's box of the plain gradient (float64: 1e-12); so does
+    a dim split over both mesh dims, gathered the last split first and
+    scattered back the first first (its forward exact)."""
     payloads, _ = results[0][shape]
     rows = set()
     for p in payloads:
@@ -353,6 +355,8 @@ def test_gather_backward_is_the_plain_gradients_box(results, shape):
         assert c["replicated"]["err"] <= 1e-12
         assert c["pending"]["placements"] == ["model", None]
         assert c["pending"]["err"] <= 1e-12 * c["pending"]["scale"]
+        assert c["nested"]["placements"] == [["data", "model"], None]
+        assert c["nested"]["forward"] == 0.0 and c["nested"]["err"] <= 1e-12
         rows.add(c["replicated"]["rows"])
     assert rows == ({2, 1} if shape == (1, 4) else {4, 3})  # uneven chunks of 7
 

@@ -532,32 +532,46 @@ def train_batch(cfg, dcfg, step: int) -> dict:
                 **frontend_inputs(cfg, dcfg.global_batch, np.random.default_rng(100 + step)))
 
 
+def variant_config(arch: str, dtype: str, variant: str, overrides: dict | None = None):
+    """The reduced `arch` (`reduced_for_smoke`, then `overrides`) in
+    `dtype`, with the int8 KV cache for the dry run's 'kvq8' and 'combo'
+    variants."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype=dtype, **(overrides or {}))
+    return dataclasses.replace(cfg, kv_quant=variant in ("kvq8", "combo"))
+
+
 def scenario_mesh_serve(spec: dict, rank: int) -> dict:
     """The decoder-only LMs served under `SERVE_RULES` on a mesh of the
     job's ranks: for each (dtype, batch) case of `args["arch"]` (weights
     `weights.npz`) or (arch, dtype, batch) case (`weights-ARCH.npz`), the
     reduced model's params, laid out by `tree_shardings`, through
     `launch.serve.run_static(mesh=, teacher=, keep=True)`: the prefill and
-    teacher-forced decode steps, with the host-staged gathers they make.
-    Then each of `args["moe_blocks"]` (`_moe_block`), and each of
-    `args["refused"]`, a (arch, batch, prompt, gen) run whose cache layout
-    the port cannot write yet (its error). Rank 0 writes every case's
-    logits, the gathered cache and the param and cache specs to
-    `mesh_serve.pkl`."""
+    teacher-forced decode steps, with the host-staged gathers they make
+    and the collectives (`CommDebugMode`). A dict case names its arch,
+    dtype, batch, lengths, weights file and the dry run's variant
+    ('baseline', 'kvq8', 'seqkv', 'combo': `variant_config`; the cache
+    split along its sequence for the last two). Then each of
+    `args["moe_blocks"]` (`_moe_block`). Rank 0 writes every case's logits,
+    the gathered cache and the param and cache specs to `mesh_serve.pkl`."""
     import argparse
     import dataclasses
 
     import torch
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import batch_shardings
     from repro_torch.launch.mesh import make_emulated_mesh
     from repro_torch.models import build_model, reduced_for_smoke
     from repro_torch.models import nn as mnn
     from repro_torch.runtime import dist
     from repro_torch.runtime import sharding as rsh
-
-    from repro_torch.launch.dryrun import batch_shardings
 
     torch.set_num_threads(2)
     a = spec["args"]
@@ -580,55 +594,57 @@ def scenario_mesh_serve(spec: dict, rank: int) -> dict:
     )
     out = {}
     for case in a["cases"]:
-        arch, dtype, batch = case if len(case) == 3 else (a["arch"], *case)
-        weights = _case_weights(spec, "weights-{arch}.npz" if len(case) == 3 else "weights.npz",
-                                arch)
-        cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype=dtype)
+        if isinstance(case, dict):  # a cache variant: its own config, lengths and weights
+            arch, dtype, batch = case["arch"], case["dtype"], case["batch"]
+            weights = _case_weights(spec, case["weights"], arch)
+            cfg = variant_config(arch, dtype, case["variant"], case.get("overrides"))
+            prompt_len, gen, key = case["prompt_len"], case["gen"], case["name"]
+            seq_shard = case["variant"] in ("seqkv", "combo")
+        else:
+            arch, dtype, batch = case if len(case) == 3 else (a["arch"], *case)
+            weights = _case_weights(spec, "weights-{arch}.npz" if len(case) == 3
+                                    else "weights.npz", arch)
+            cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype=dtype)
+            prompt_len, gen, key = a["prompt_len"], a["gen"], "/".join(str(c) for c in case)
+            seq_shard = False
         model = build_model(cfg, device="cpu")
         desc = model.desc()
         lay = _flat(rsh.tree_shardings(mnn.axes_tree(desc), rsh.SERVE_RULES, mesh,
                                             mnn.abstract_tree(desc)))
         params = nest({k: dist.put_global(torch.from_numpy(w), lay[k])
                              for k, w in weights.items()})
-        args = argparse.Namespace(batch=batch, prompt_len=a["prompt_len"], gen=a["gen"],
-                                  sample=False)
-        with _GatherLog() as gathers:
+        args = argparse.Namespace(batch=batch, prompt_len=prompt_len, gen=gen, sample=False)
+        with _GatherLog() as gathers, CommDebugMode() as comm:
             res = serve.run_static(args, cfg, model, params, mesh=mesh,
-                                   teacher=teacher[:batch, : a["gen"] - 1], keep=True)
+                                   teacher=teacher[:batch, : gen - 1], keep=True,
+                                   seq_shard=seq_shard)
         cache = _flat(res["cache"])
         whole = {k: dist.gather(v) for k, v in cache.items()}
-        # the forward without a cache (no bfloat16 K/V on the way), on
-        # run_static's prompts and frontend inputs
-        rng = np.random.default_rng(0)
-        inputs = dict(tokens=rng.integers(1, cfg.vocab, (batch, a["prompt_len"])).astype(np.int32),
-                      **frontend_inputs(cfg, batch, rng))
-        lay_in = batch_shardings(inputs, mesh, batch)
-        with rsh.activate(mesh, rsh.SERVE_RULES):
-            logits, _ = model.forward(params, {k: dist.put_global(torch.from_numpy(v), lay_in[k])
-                                               for k, v in inputs.items()})
-        out["/".join(str(c) for c in case)] = dict(
-            forward=dist.gather(logits).numpy(),
+        forward = None
+        if not isinstance(case, dict):
+            # the forward without a cache (no bfloat16 K/V on the way), on
+            # run_static's prompts and frontend inputs
+            rng = np.random.default_rng(0)
+            inputs = dict(tokens=rng.integers(1, cfg.vocab, (batch, prompt_len)).astype(np.int32),
+                          **frontend_inputs(cfg, batch, rng))
+            lay_in = batch_shardings(inputs, mesh, batch)
+            with rsh.activate(mesh, rsh.SERVE_RULES):
+                logits, _ = model.forward(params, {k: dist.put_global(torch.from_numpy(v),
+                                                                      lay_in[k])
+                                                   for k, v in inputs.items()})
+            forward = dist.gather(logits).numpy()
+        out[key] = dict(
+            forward=forward, comm={str(k): v for k, v in comm.get_comm_counts().items()},
             logits=[t.numpy() for t in res["logits"]], tokens=res["tokens"],
             cache={k: v.to(torch.float32).numpy() for k, v in whole.items()},
             param_specs={k: _spec(v) for k, v in _flat(params).items()},
             cache_specs={k: _spec(v) for k, v in cache.items()}, gathers=gathers.seen,
         )
     blocks_out = {c["name"]: _moe_block(spec, mesh, c) for c in a.get("moe_blocks", [])}
-    refused = {}
-    for arch, batch, prompt, gen in a.get("refused", []):
-        cfg = reduced_for_smoke(get_config(arch))
-        model = build_model(cfg, device="cpu")
-        params = rsh.place_params(model, mesh, rsh.SERVE_RULES)
-        args = argparse.Namespace(batch=batch, prompt_len=prompt, gen=gen, sample=False)
-        try:
-            serve.run_static(args, cfg, model, params, mesh=mesh)
-            refused[arch] = None
-        except NotImplementedError as e:
-            refused[arch] = str(e)
     if rank == 0:
         _dump(spec, "mesh_serve.pkl", dict(out, moe_blocks=blocks_out) if blocks_out else out)
     return {"rank": rank, "backend": dist.backend(), "guard": guard,
-            "tokens": {k: v["tokens"].tolist() for k, v in out.items()}, "refused": refused}
+            "tokens": {k: v["tokens"].tolist() for k, v in out.items()}}
 
 
 def _gather_backward_check(mesh) -> dict:
@@ -638,7 +654,8 @@ def _gather_backward_check(mesh) -> dict:
     (1) under a replicated gradient, a weighted sum, and (2) as FSDP
     gathers a weight: its product with a (7, 7) input split by rows over
     'model' too gives each rank part of the weight's gradient, pending over
-    'model', and each rank keeps its box of the sum (a reduce-scatter)."""
+    'model', and each rank keeps its box of the sum (a reduce-scatter);
+    and (3) a (10, 6) tensor split over both mesh dims along its rows."""
     import torch
     from torch.distributed.tensor import Partial, Replicate
 
@@ -673,6 +690,18 @@ def _gather_backward_check(mesh) -> dict:
     out["pending"] = dict(
         placements=_spec(g), err=float((g.to_local() - gp[start[0]:stop[0]]).abs().max()),
         scale=float(gp.abs().max()))
+    # (3) a dim split over both mesh dims (as TRAIN_RULES split the batch
+    # over ('pod', 'data')): a (10, 6) tensor chunked over 'data', each
+    # chunk over 'model' (uneven on both meshes), gathered whole, its
+    # replicated gradient scattered back to each rank's box
+    nested = _lay(mesh, (("data", "model"), None))
+    w10, c10 = torch.cat([w, w[:3]]), torch.cat([c, c[:3]])
+    wd = dist.put_global(w10, nested).requires_grad_(True)
+    y = rsh.redistribute(wd, whole)
+    (g,) = torch.autograd.grad((y.to_local() * c10).sum(), wd)
+    start, stop = rsh.local_box(nested, (10, 6))
+    out["nested"] = dict(placements=_spec(g), forward=float((y.to_local() - w10).abs().max()),
+                         err=float((g.to_local() - c10[start[0]:stop[0]]).abs().max()))
     return out
 
 
@@ -778,8 +807,7 @@ def scenario_mesh_moe(spec: dict, rank: int) -> dict:
     a = spec["args"]
     served = scenario_mesh_serve(dict(spec, args=a["serve"]), rank)
     trained = scenario_mesh_train(dict(spec, args=a["train"]), rank)
-    return dict(trained, tokens=served["tokens"], refused=served["refused"],
-                guard=served["guard"])
+    return dict(trained, tokens=served["tokens"], guard=served["guard"])
 
 
 def scenario_mesh_families(spec: dict, rank: int) -> dict:
@@ -973,10 +1001,60 @@ def _nothing():
     return contextlib.nullcontext()
 
 
+def scenario_dryrun(spec: dict, rank: int) -> dict:
+    """The dry-run launcher in this one process (the fake group is global to
+    it, so the job's one-rank gloo group is left first): each of
+    `args["cells"]` (name, arch, shape, variant, mesh shape) lowered at
+    full width and one layer unit (`lower_cell(units=1)`) on fake tensors
+    over a fake group of the mesh's size, its counts; then `analyze_cell`
+    of `args["record"]` (arch, shape, variant) on a fake (2, 2) group with
+    the config cut to `args["record_layers"]` layers (a uniform stack:
+    its `corrected` extrapolation must give its own counts), and of
+    `args["skip"]` (a full-attention arch at long_500k)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_emulated_mesh
+    from repro_torch.runtime import dist
+
+    torch.set_num_threads(2)
+    dist.shutdown()
+    a = spec["args"]
+    out: dict = {"cells": {}}
+    for name, arch, shape, variant, mesh_shape in a["cells"]:
+        names = ("data", "model") if len(mesh_shape) == 2 else ("pod", "data", "model")
+        with dryrun.fake_group(math.prod(mesh_shape)):
+            mesh = make_emulated_mesh(tuple(mesh_shape), names, device="cpu")
+            c, _ = dryrun.lower_cell(arch, shape, mesh, units=1, variant=variant)
+        out["cells"][name] = dict(
+            flops=c.flops, bytes=c.bytes_accessed, collectives=c.collectives,
+            counts=c.collective_counts, seconds=c.seconds,
+            memory=dict(argument=c.memory.argument_size_in_bytes,
+                        output=c.memory.output_size_in_bytes,
+                        alias=c.memory.alias_size_in_bytes, temp=c.memory.temp_size_in_bytes))
+    arch, shape, variant = a["record"]
+    full = dryrun.get_config
+    dryrun.get_config = lambda name: full(name).scaled(n_layers=a["record_layers"])
+    try:
+        with dryrun.fake_group(4):
+            mesh = make_emulated_mesh((2, 2), device="cpu")
+            out["record"] = dryrun.analyze_cell(arch, shape, "single", variant=variant,
+                                                mesh=mesh)
+            out["skip"] = dryrun.analyze_cell(a["skip"], "long_500k", "single", mesh=mesh)
+    finally:
+        dryrun.get_config = full
+    out["record_units"] = dryrun.full_units(get_config(arch).scaled(n_layers=a["record_layers"]))
+    return out
+
+
 SCENARIOS = {
     "card": scenario_card,
     "card_layer": scenario_card_layer,
     "card_train": scenario_card_train,
+    "dryrun": scenario_dryrun,
     "mesh_families": scenario_mesh_families,
     "mesh_moe": scenario_mesh_moe,
     "mesh_serve": scenario_mesh_serve,
