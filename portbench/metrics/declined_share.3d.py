@@ -1,0 +1,7 @@
+"""declined_share.3d: `declined_share`, read the same way, in the cells
+whose compress rate is read per layer (`compress_GBps.3d`). It names the
+cell's other end-to-end metric as the one it moves."""
+
+from portbench.spec import metric_reader
+
+read = metric_reader("declined_share")

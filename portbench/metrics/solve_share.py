@@ -1,0 +1,10 @@
+"""solve_share: the share of the requests' wall time spent inside
+`solve_many` (the quality-target controller), from the benchmark's spans."""
+
+
+def read(ctx):
+    wall = sum(r["wall_s"] for r in ctx["requests"])
+    spent = sum(r["solve_s"] for r in ctx["requests"])
+    if not wall or not spent:
+        return None
+    return 100.0 * spent / wall
